@@ -1,0 +1,27 @@
+"""Carry values across between the JAX package and the port.
+
+The JAX package holds field elements as uint32 arrays of 16-bit limbs in
+Montgomery form (R = 2^256); the port holds the same limbs as torch.int64
+(CPU torch has no uint32 add or shift).  Both sides keep every value
+canonical, so the conversion is exact both ways.
+"""
+
+import numpy as np
+import torch
+
+
+def from_reference(arr, device="cpu"):
+    """numpy uint32 limb array (an instance A or B, a proof, Fq12 values)
+    -> int64 tensor on `device`."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint32 or (arr.size and int(arr.max()) > 0xFFFF):
+        raise ValueError("expected a uint32 array of 16-bit limbs")
+    return torch.from_numpy(arr.astype(np.int64)).to(device)
+
+
+def to_reference(x) -> np.ndarray:
+    """int64 limb tensor -> the numpy uint32 array the JAX package holds."""
+    arr = x.detach().cpu().numpy()
+    if arr.size and (arr.min() < 0 or arr.max() > 0xFFFF):
+        raise ValueError("tensor holds values that are not 16-bit limbs")
+    return arr.astype(np.uint32)

@@ -1,0 +1,173 @@
+"""Build the port's native code at first use, cached by content hash.
+
+Two libraries, both plain C interfaces loaded with ctypes:
+
+* the CUDA kernels (K1 Miller product, K2 final exponentiation, K3 fold
+  ladders): sipp_tpu_torch/csrc/*.cu + bn254.cuh, compiled by nvcc for
+  sm_90a, with a generated header of BN254 constants derived from
+  params/hostref (so no constant is typed by hand in the CUDA sources);
+* the host library of the repo's csrc/ (Poseidon transcript chain, Fq12
+  pow/mul), compiled by g++ (see native.py).
+
+Outputs go to sipp_tpu_torch/build/ (listed in .gitignore) under a name that
+hashes the compiler command and every input's content; a finished library is
+moved into place atomically, so concurrent builders never load a partial
+file.  A failed build raises with the compiler's output.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parent.parent
+BUILD_DIR = PKG / "build"
+CUDA_SRC = PKG / "csrc"
+CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# filled by cuda_library(): wall seconds of the call (near 0 when the
+# library was already built) and the compiler's report (ptxas registers,
+# stack and spills per kernel; empty when cached)
+BUILD_INFO = {}
+
+
+def _digest(parts) -> str:
+    h = hashlib.sha256()
+    for part in parts:
+        h.update(part if isinstance(part, bytes) else str(part).encode())
+        h.update(b"\0")
+    return h.hexdigest()[:16]
+
+
+def compile_shared(tag: str, cmd: list, sources: list, extra: tuple = ()):
+    """Compile `sources` with `cmd` (+ -o OUT) into BUILD_DIR, unless a
+    library of identical inputs is already there.  Returns (path, log)."""
+    key = _digest([*cmd, *(pathlib.Path(s).read_bytes() for s in sources), *extra])
+    out = BUILD_DIR / f"lib{tag}_{key}.so"
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([*cmd, "-o", str(tmp), *map(str, sources)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {tag} failed ({' '.join(cmd)}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+# ------------------------------------------------------ generated constants
+
+def _words(x: int, n: int = 8):
+    return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(n)]
+
+
+def _arr(name: str, ctype: str, dims: str, flat) -> str:
+    body = ", ".join(str(v) if ctype != "uint32_t" else f"0x{v:08x}u" for v in flat)
+    return f"static __constant__ {ctype} {name}{dims} = {{{body}}};\n"
+
+
+def params_header() -> str:
+    """BN254 constants for the kernels, in 8 x 32-bit little-endian words,
+    Montgomery form (R = 2^256) where they are field elements."""
+    from .. import hostref, params
+    from ..fields import tower
+    from ..pairing.ate import TAPE
+    from .miller import BLOCK
+
+    P, R = params.P, 1 << 256
+
+    def mont(v):
+        return _words(v * R % P)
+
+    lines = ["// Generated by sipp_tpu_torch/ops/_build.py from params/hostref.",
+             "#pragma once", "#include <cstdint>"]
+    for i, w in enumerate(_words(P)):
+        lines.append(f"#define BN_P{i} 0x{w:08x}u")
+    lines.append(f"#define BN_N0 0x{(-pow(P, -1, 1 << 32)) % (1 << 32):08x}u")
+    for i, w in enumerate(mont(1)):
+        lines.append(f"#define BN_ONE{i} 0x{w:08x}u")
+    lines.append(f"#define BN_X 0x{params.X:016x}ull")
+    lines.append(f"#define BN_X_NBITS {params.X.bit_length()}")
+    naf = list(reversed(params.ATE_NAF[:-1]))
+    lines.append(f"#define BN_NAF_LEN {len(naf)}")
+    lines.append(f"#define BN_TAPE_LEN {len(TAPE)}")
+    lines.append(f"#define MILLER_MAX_BLOCK {BLOCK}")
+    text = "\n".join(lines) + "\n"
+    text += _arr("BN_PM2", "uint32_t", "[8]", _words(P - 2))
+    text += _arr("BN_NAF", "signed char", f"[{len(naf)}]", naf)
+    text += _arr("BN_TWF", "uint32_t", "[2][2][8]",
+                 [w for c in (hostref.TWIST_FROB_X, hostref.TWIST_FROB_Y)
+                  for v in c for w in mont(v)])
+    # FROB[k-1][i*3+j] multiplies sigma^k of coefficient (w^i v^j)
+    text += _arr("BN_FROB", "uint32_t", "[3][6][2][8]",
+                 [w for k in (1, 2, 3) for c in tower.frob_consts_ints(k)
+                  for v in c for w in mont(v)])
+    text += _arr("BN_TAPE", "signed char", f"[{len(TAPE)}][4]",
+                 [v for row in TAPE for v in row])
+    return text
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+@functools.lru_cache(maxsize=None)
+def cuda_library():
+    """Build (or find) and load the kernels' shared library."""
+    header = params_header()
+    inc = BUILD_DIR / f"include_{_digest([header])}"
+    if not (inc / "bn254_params.cuh").exists():
+        inc.mkdir(parents=True, exist_ok=True)
+        tmp = inc / f"bn254_params.cuh.{os.getpid()}.tmp"
+        tmp.write_text(header)
+        os.replace(tmp, inc / "bn254_params.cuh")
+    t0 = time.time()
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{inc}", f"-I{CUDA_SRC}"]
+    path, log = compile_shared(
+        "sipp_cuda", cmd, [CUDA_SRC / s for s in CUDA_SOURCES],
+        extra=((CUDA_SRC / "bn254.cuh").read_bytes(), header))
+    BUILD_INFO.update(seconds=time.time() - t0, log=log, path=str(path))
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name, args in {
+        "sipp_miller_product": [vp, vp, vp, ci, ci, ci, vp],
+        "sipp_final_exp": [vp, vp, ci, vp],
+        "sipp_fold_g1": [vp, vp, vp, vp, ci, vp],
+        "sipp_fold_g2": [vp, vp, vp, vp, ci, vp],
+    }.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ci
+    lib.sipp_cuda_error_string.argtypes = [ci]
+    lib.sipp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib, err: int, what: str):
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        msg = lib.sipp_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
+
+
+def check_cuda_input(x, name: str, shape_tail: tuple):
+    """Kernel inputs: contiguous int64 limb tensors with the given trailing
+    shape."""
+    if x.dtype != torch.int64:
+        raise TypeError(f"{name}: expected torch.int64 limbs, got {x.dtype}")
+    if tuple(x.shape[-len(shape_tail):]) != shape_tail:
+        raise ValueError(f"{name}: expected trailing shape {shape_tail}, got {tuple(x.shape)}")
+    return x.contiguous()

@@ -1,0 +1,69 @@
+"""K1: the Miller product over lanes (csrc/miller.cu), replacing
+sipp_tpu/ops/pallas_miller.py:miller_product_fused.
+
+miller_product(p, q, pair) launches the kernel for CUDA tensors and runs
+miller_product_plain for CPU tensors; there is no other route.  Bound on the
+H100 and design: see the note at the top of csrc/miller.cu.
+"""
+
+import torch
+
+from ..pairing import ate
+from . import _build
+
+BLOCK = 128   # most lanes per block; _build emits it as MILLER_MAX_BLOCK
+
+
+def miller_product_plain(p, q, pair: bool = False):
+    """prod_i miller(P_i, Q_i) in plain PyTorch: (2, 3, 2, 16), or with
+    pair=True the (2, 2, 3, 2, 16) stack [even-lane product, odd-lane
+    product]."""
+    f = ate.miller_loop(p, q)
+    if pair:
+        return torch.stack([ate.product_tree(f[0::2]), ate.product_tree(f[1::2])])
+    return ate.product_tree(f)
+
+
+def _lanes(n: int, pair: bool) -> int:
+    """Launch width: a power of two up to one block, else whole blocks."""
+    w = max(n, 2 if pair else 1)
+    if w <= BLOCK:
+        return 1 << (w - 1).bit_length()
+    return -(-w // BLOCK) * BLOCK
+
+
+def miller_product(p, q, pair: bool = False):
+    """p: (n, 2, 16) G1 affine, q: (n, 2, 2, 16) G2 affine (int64 limbs);
+    with pair=True, n is even and the even and odd lanes form two products."""
+    if p.shape[0] != q.shape[0] or (pair and p.shape[0] % 2):
+        raise ValueError(f"bad lane counts {tuple(p.shape)} x {tuple(q.shape)} (pair={pair})")
+    if p.device.type == "cpu":
+        return miller_product_plain(p, q, pair)
+    if p.device.type != "cuda":
+        raise ValueError(f"miller_product: unsupported device {p.device}")
+    p = _build.check_cuda_input(p, "p", (2, 16))
+    q = _build.check_cuda_input(q, "q", (2, 2, 16))
+    lib = _build.cuda_library()
+    n = p.shape[0]
+    w = _lanes(n, pair)
+    if w > n:   # infinity lanes contribute 1 to either parity class
+        p = torch.cat([p, p.new_zeros((w - n, 2, 16))])
+        q = torch.cat([q, q.new_zeros((w - n, 2, 2, 16))])
+    k = 2 if pair else 1
+    block = min(w, BLOCK)
+    out = torch.empty((w // block, k, 2, 3, 2, 16), dtype=torch.int64, device=p.device)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.sipp_miller_product(p.data_ptr(), q.data_ptr(), out.data_ptr(), w,
+                                      block, int(pair), stream)
+    _build.check_launch(lib, err, "miller_product")
+    if pair:
+        miller_product.pair_launches += 1
+    else:
+        miller_product.launches += 1
+    res = ate.product_tree(out) if out.shape[0] > 1 else out[0]
+    return res if pair else res[0]
+
+
+miller_product.launches = 0
+miller_product.pair_launches = 0
