@@ -1,25 +1,56 @@
 """Smoke test of the PyTorch + CUDA port (sipp_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's main path, the README quick-start sipp_prove -> sipp_verify,
-at n = 128 on the seed-1177 instance, through the hand-written CUDA kernels
-K1 (Miller product, both modes), K2 (final exponentiation) and K3 (fold
-ladders, G1 and G2).  Phases, one JSON line each; any failure raises and
-exits non-zero:
+Drives the port's main paths at n = 128 on the seed-1177 instance, through
+the hand-written CUDA kernels K1 (Miller product, both modes), K2 (final
+exponentiation), K3 (fold ladders), K4/K5 (transcript tail and Z append) and
+K6 (per-lane exp ladders, G1 and G2):
 
-  1. device: card, torch/CUDA versions, build times of the kernels and of
-     the host library (so that no later phase times a build);
+  A. the host-spine sipp_prove -> sipp_verify with fold ladders
+     (SIPP_VERIFY_MSM=0);
+  B. the on-chip prover sipp_prove_onchip;
+  C. sipp_verify with MSM-form finals: its default on the card, the verify
+     of the README quick-start.
+
+Phases, one JSON line each; any failure raises and exits non-zero:
+
+  1. device: card, SM clock, torch/CUDA versions, build times of the kernels
+     and of the host library (so that no later phase times a build);
   2. each kernel against its plain PyTorch version on the same card inputs,
-     at the main path's shapes (bit equality: tolerance 0, every value is a
-     canonical field element), with both times; K1 also with infinity
-     lanes, at padded widths (6 lanes) and over two blocks (130 lanes);
+     at the main paths' shapes (bit equality: tolerance 0, every value is a
+     canonical field element), with both times and the kernel's bound; K1
+     also with infinity lanes, at padded widths (6 lanes) and over two blocks
+     (130 lanes); K4/K5 on a state and Fq12 values of the n = 128 run; K6 with
+     MSM-finals bits at 128 lanes, and at 100 lanes with infinity x lanes,
+     infinity offsets and offsets equal to [k]x; the digest -> challenge
+     step of K4 alone on synthetic digests with zero digits;
   3. the n = 128 aggregation Z = FE(prod Miller(A_i, B_i)) must hash to the
      JAX reference's digest, then its steady-state time on distinct inputs;
-  4. prove and verify at n = 128 with the launch counters reset just before
-     (every kernel must have run), a tampered proof must be rejected, and
-     the n = 4 golden proof and statement of tests/golden/torch_port.npz must
-     come out byte for byte;
+  4. paths A, B and C, each with the launch counters set to 0 just before it
+     and read just after (every kernel of a path must have run): the on-chip
+     proof must equal the host-spine proof byte for byte with equal final
+     transcript states, the MSM and fold verifiers must return equal
+     statements, a tampered proof must be rejected by both; then, counted
+     nowhere: the on-chip rounds again under
+     torch.cuda.set_sync_debug_mode("error") (no host sync), a round_times
+     run (fold_round_latency_ms_n128, the median round), steady prove_s and
+     verify_s, the MSM finals split (K6 against tree sum + to_affine), the
+     device idle share over one prove of each prover (torch.profiler), and
+     the n = 4 golden proof and statement of tests/golden/torch_port.npz
+     from both provers and both verifiers, byte for byte;
   5. the kernel table, the card's name and power limit (nvidia-smi), and the
      last line {"ok": true, "device": {...}}.
+
+A kernel's bound is the larger of its bytes (inputs read once, outputs
+written once, over 3.35 TB/s) and its operations as 32-bit multiply
+instructions (a 32 x 32 -> 64-bit word product is two: its low and high
+halves) over the card's rate of 132 SMs x 64 a clock x the maximum SM clock.
+For K1, K2, K3 and K6 the operations are the Fq products that the plain
+version computes on the same inputs (counted while it runs; for K6 less the
+additions that this run's bits and infinity lanes skip), 256 multiplies for
+an 8-word Montgomery product.  For K4 and K5 they are the kernel's own
+multiplies per launch (transcript_imuls): the plain version works on 16-bit
+Goldilocks limbs in Montgomery form, the kernel on canonical u64.  No
+PyTorch call computes any of these functions, so library_ms is null.
 
 Usage, from the root of a checkout (the first run builds the kernels with
 nvcc into sipp_tpu_torch/build/):
@@ -27,9 +58,13 @@ nvcc into sipp_tpu_torch/build/):
     python3 chip_smoke.py
 """
 
+import collections
+import contextlib
 import hashlib
 import json
+import os
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -43,10 +78,88 @@ SEED = 1177
 REF_DIGEST = "2d267b78388f92ba"
 REPS = 10
 GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden" / "torch_port.npz"
+HBM_BYTES_PER_S = 3.35e12
+FQ_PRODUCT_IMULS = 256                # an 8-word Montgomery product (Fq, Fr)
+ADD_MIXED_PRODUCTS = 11               # field products of one incomplete mixed add
+GL_PRODUCT_IMULS = 8    # Goldilocks 64 x 64 -> 128 bits: 4 word products; the
+#                         reduction by 2^64 = 2^32 - 1 takes shifts and adds
+MDS_TERM_IMULS = 4      # an MDS entry (< 2^32) times a u64: 2 word products
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def count_products():
+    """Count the field products of the plain versions: Field.mul makes three
+    prod_cols calls of the same batch; the count is keyed by limb count."""
+    from sipp_tpu_torch.fields import fq
+
+    counts = collections.Counter()
+    orig = fq.prod_cols
+
+    def counting(a, b):
+        out = orig(a, b)
+        counts[out.shape[-1] // 2] += out[..., 0].numel()
+        return out
+
+    fq.prod_cols = counting
+    try:
+        yield counts
+    finally:
+        fq.prod_cols = orig
+
+
+def transcript_imuls(appends, challenge):
+    """32-bit multiplies of one launch of transcript.cu: each append is
+    ceil((4 + 96) / rate) Poseidon permutations and 12 Fq products (the
+    message encode out of Montgomery form); the state converts in and out of
+    Montgomery form with 8 Goldilocks products; the challenge is one more
+    permutation and the Fr chain of 3 + 256 squarings + popcount(r - 2)
+    products."""
+    from sipp_tpu_torch import params
+    from sipp_tpu_torch.fields import poseidon as ps
+
+    sboxes = 2 * ps.N_FULL * ps.WIDTH + ps.N_PARTIAL       # x^7: 4 products each
+    perm = sboxes * 4 * GL_PRODUCT_IMULS + ps.N_ROUNDS * ps.WIDTH ** 2 * MDS_TERM_IMULS
+    perms = appends * -(-(4 + 96) // ps.RATE) + (1 if challenge else 0)
+    fr_chain = 3 + 256 + bin(params.R - 2).count("1") if challenge else 0
+    return (perms * perm + 8 * GL_PRODUCT_IMULS
+            + (appends * 12 + fr_chain) * FQ_PRODUCT_IMULS)
+
+
+def idle_share(fn):
+    """Device busy time and idle share over one call of fn (torch.profiler);
+    None where the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("window"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = [e for e in events if e.name == "window"]
+    # device activity: kernels and copies (not the window's own annotation)
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "window"]
+    if not window or not device:
+        return None
+    w0, w1 = window[0].time_range.start, window[0].time_range.end
+    busy, end, by_name = 0.0, w0, collections.Counter()
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in device):
+        s, e = max(s, end), min(e, w1)
+        if e > s:
+            busy += e - s
+            end = e
+    for e in device:
+        name = e.name.split("<")[0].split("(")[0]
+        by_name[name] += (e.time_range.end - e.time_range.start) / 1e3
+    return {"window_ms": (w1 - w0) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / (w1 - w0),
+            "top_ms": dict(by_name.most_common(6))}
 
 
 def main():
@@ -54,18 +167,24 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a GPU")
-    from sipp_tpu_torch import convert, native, params
-    from sipp_tpu_torch.curves import scalar_to_bits
-    from sipp_tpu_torch.fields import tower
-    from sipp_tpu_torch.ops import _build, fexp, fold, miller
+    from sipp_tpu_torch import convert, curves, hostref, native, params
+    from sipp_tpu_torch.curves import G1, G2, scalar_to_bits
+    from sipp_tpu_torch.fields import FGL, tower
+    from sipp_tpu_torch.ops import _build, exp, fexp, fold, miller, msm, transcript
     from sipp_tpu_torch.pairing import ate
-    from sipp_tpu_torch.protocol import VerificationError, sipp_prove, sipp_verify
+    from sipp_tpu_torch.protocol import (VerificationError, prover, sipp_prove,
+                                         sipp_prove_onchip, sipp_verify, verifier)
+    from sipp_tpu_torch.protocol import transcript as host_transcript
     from sipp_tpu_torch.utils.testing import random_instance
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    imul_per_s = 132 * 64 * sm_mhz * 1e6
 
     # ---------------------------------------------------------- 1. device
     t0 = time.time()
@@ -76,7 +195,7 @@ def main():
     host_build_s = time.time() - t0
     regs = [line.split(":", 1)[1].strip() for line in _build.BUILD_INFO["log"].splitlines()
             if "Used" in line and "registers" in line]
-    emit({"phase": "device", "card": smi, "torch": torch.__version__,
+    emit({"phase": "device", "card": smi, "sm_max_mhz": sm_mhz, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "host_build_s": host_build_s,
           "ptxas": regs})
 
@@ -98,10 +217,19 @@ def main():
 
     def plain_ms(fn):
         torch.cuda.synchronize()
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.time() - t) * 1e3
+        with count_products() as counts:
+            t = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.time() - t) * 1e3
+        return out, ms, {limbs: c // 3 for limbs, c in counts.items()}
+
+    def tensors(obj):
+        if isinstance(obj, torch.Tensor):
+            return [obj]
+        if isinstance(obj, (tuple, list)):
+            return [t for o in obj for t in tensors(o)]
+        return []
 
     half = N // 2
     pair_p = torch.stack([a[half:], a[:half]], dim=1).reshape(N, 2, 16)
@@ -124,7 +252,7 @@ def main():
 
     def k1(p, q, pair=False):
         return (lambda: miller.miller_product(p, q, pair=pair),
-                lambda: miller.miller_product_plain(p, q, pair=pair))
+                lambda: miller.miller_product_plain(p, q, pair=pair), (p, q))
 
     k1_src = ("miller.cu", "sipp_tpu/ops/pallas_miller.py:289")
     dead = slice(N - 8, N)
@@ -135,6 +263,54 @@ def main():
     fold_x = params.R - 12345      # a fixed challenge with its top bit set
     xbits = scalar_to_bits(fold_x)
     xinvbits = scalar_to_bits(pow(fold_x, -1, params.R))
+
+    # K4/K5 inputs from the n = 128 run: the state after the point prologue,
+    # Z, the state after Z, and the first round's (Z_L, Z_R)
+    z128 = fexp.final_exp(f_one[None])[0]
+    zs128 = fexp.final_exp(f_two)
+    state0 = FGL.encode(prover.prologue(a, b).state, dev)
+    state1 = transcript.transcript_append_fq12(state0, z128)
+
+    # K6 inputs: MSM-finals bits of seeded challenges at 128 lanes with zero
+    # offsets (the verifier's call); and 100 lanes with infinity x lanes,
+    # random offsets, infinity offsets and offsets equal to [k]x
+    rng = np.random.default_rng(SEED)
+    xs = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(7)]
+    bits_a, bits_b = verifier.msm_bits([(x, pow(x, -1, params.R)) for x in xs], N)
+    msm_a = torch.as_tensor(bits_a, device=dev)
+    msm_b = torch.as_tensor(bits_b, device=dev)
+    E = 100
+    ks = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(E)]
+    edge_bits = torch.as_tensor(np.stack([scalar_to_bits(k) for k in ks], 1).astype(np.int64),
+                                device=dev)
+    x_inf, off_inf, off_eq = [1, 50, 99], [2, 51, 98], [3, 52, 97]
+
+    def edge(x, off, decode, encode, mul):
+        x, off = x[:E].clone(), off[:E].clone()
+        x[x_inf] = 0
+        off[off_inf] = 0
+        pts = decode(x[off_eq])
+        off[off_eq] = encode([mul(pt, ks[i]) for pt, i in zip(pts, off_eq)], dev)
+        return x, off
+
+    ex1, eo1 = edge(a, torch.roll(a, 7, 0), curves.g1_decode, curves.g1_encode, hostref.g1_mul)
+    ex2, eo2 = edge(b, torch.roll(b, 7, 0), curves.g2_decode, curves.g2_encode, hostref.g2_mul)
+
+    def k6(fn, plain, x, off, bits):
+        return (lambda: fn(x, off, bits), lambda: plain(x, off, bits), (x, off, bits))
+
+    def k6_skipped(x, bits):
+        """Field products of the incomplete adds that the kernel skips: lanes
+        whose bit is 0, and every add of an x at infinity."""
+        live = ~curves.G1.is_affine_infinity(x) if x.dim() == 3 else \
+            ~curves.G2.is_affine_infinity(x)
+        adds = int((bits.sum(0) * live).sum())
+        return ADD_MIXED_PRODUCTS * (254 * x.shape[0] - adds)
+
+    zeros_a, zeros_b = torch.zeros_like(a), torch.zeros_like(b)
+    k6_g1 = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:117")
+    k6_g2 = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:128")
+    k45 = "sipp_tpu/ops/pallas_transcript.py:"
     cases = [
         ("miller_product", "miller_product", *k1_src, *k1(a, b)),
         ("miller_product_inf", "miller_product", *k1_src, *k1(a_inf, b_inf)),
@@ -147,26 +323,57 @@ def main():
          *k1(pp_inf[:6], pq_inf[:6], True)),
         ("miller_product_pair_n130", "miller_product_pair", *k1_src, *k1(pp_130, pq_130, True)),
         ("final_exp_b1", "final_exp", "fexp.cu", "sipp_tpu/ops/pallas_fexp.py:327",
-         lambda: fexp.final_exp(f_one[None]), lambda: fexp.final_exp_plain(f_one[None])),
+         lambda: fexp.final_exp(f_one[None]), lambda: fexp.final_exp_plain(f_one[None]),
+         (f_one,)),
         ("final_exp_b2", "final_exp", "fexp.cu", "sipp_tpu/ops/pallas_fexp.py:327",
-         lambda: fexp.final_exp(f_two), lambda: fexp.final_exp_plain(f_two)),
+         lambda: fexp.final_exp(f_two), lambda: fexp.final_exp_plain(f_two), (f_two,)),
         ("fold_g1", "fold_g1", "fold.cu", "sipp_tpu/ops/pallas_fold.py:210",
-         lambda: fold.fold_g1(lo1, hi1, xbits), lambda: fold.fold_g1_plain(lo1, hi1, xbits)),
+         lambda: fold.fold_g1(lo1, hi1, xbits), lambda: fold.fold_g1_plain(lo1, hi1, xbits),
+         (lo1, hi1)),
         ("fold_g2", "fold_g2", "fold.cu", "sipp_tpu/ops/pallas_fold.py:221",
-         lambda: fold.fold_g2(lo2, hi2, xinvbits), lambda: fold.fold_g2_plain(lo2, hi2, xinvbits)),
+         lambda: fold.fold_g2(lo2, hi2, xinvbits), lambda: fold.fold_g2_plain(lo2, hi2, xinvbits),
+         (lo2, hi2)),
+        ("transcript_append_fq12", "transcript_append_fq12", "transcript.cu", k45 + "269",
+         lambda: transcript.transcript_append_fq12(state0, z128),
+         lambda: transcript.transcript_append_fq12_plain(state0, z128), (state0, z128)),
+        ("transcript_round_tail", "transcript_round_tail", "transcript.cu", k45 + "302",
+         lambda: transcript.transcript_round_tail(state1, zs128[0], zs128[1]),
+         lambda: transcript.transcript_round_tail_plain(state1, zs128[0], zs128[1]),
+         (state1, zs128)),
+        ("exp_g1", "exp_g1", *k6_g1, *k6(exp.exp_g1, exp.exp_g1_plain, a, zeros_a, msm_a)),
+        ("exp_g2", "exp_g2", *k6_g2, *k6(exp.exp_g2, exp.exp_g2_plain, b, zeros_b, msm_b)),
+        ("exp_g1_edge_n100", "exp_g1", *k6_g1,
+         *k6(exp.exp_g1, exp.exp_g1_plain, ex1, eo1, edge_bits)),
+        ("exp_g2_edge_n100", "exp_g2", *k6_g2,
+         *k6(exp.exp_g2, exp.exp_g2_plain, ex2, eo2, edge_bits)),
     ]
+    skipped = {"exp_g1": k6_skipped(a, msm_a), "exp_g2": 3 * k6_skipped(b, msm_b),
+               "exp_g1_edge_n100": k6_skipped(ex1, edge_bits),
+               "exp_g2_edge_n100": 3 * k6_skipped(ex2, edge_bits)}
+    own_imuls = {"transcript_append_fq12": transcript_imuls(1, False),
+                 "transcript_round_tail": transcript_imuls(2, True)}
     table = {}
-    for name, counter, src, replaces, kern, plain in cases:
+    for name, counter, src, replaces, kern, plain, inputs in cases:
         got = kern()
-        want, p_ms = plain_ms(plain)
-        err = int((got - want).abs().max())
-        ok = got.shape == want.shape and err == 0
+        want, p_ms, products = plain_ms(plain)
+        err = max(int((g - w).abs().max()) for g, w in zip(tensors(got), tensors(want)))
+        ok = all(g.shape == w.shape for g, w in zip(tensors(got), tensors(want))) and err == 0
         k_ms = kernel_ms(kern)
+        if name in own_imuls:
+            imuls = own_imuls[name]
+        else:
+            imuls = FQ_PRODUCT_IMULS * (products.get(16, 0) - skipped.get(name, 0))
+        nbytes = 8 * sum(t.numel() for t in tensors(inputs) + tensors(got))
+        ops_ms, bytes_ms = imuls / imul_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         table[name] = {"name": name, "route": "cuda", "source": f"sipp_tpu_torch/csrc/{src}",
                        "replaces": replaces, "counter": counter, "max_abs_err": err,
-                       "ms": k_ms, "plain_ms": p_ms}
-        emit({"phase": "kernel", "name": name, "shape": list(got.shape), "bit_equal": ok,
-              "max_abs_err": err, "tolerance": 0, "ms": k_ms, "plain_ms": p_ms})
+                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
+                       "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                       "library_ms": None}
+        emit({"phase": "kernel", "name": name, "shape": [list(t.shape) for t in tensors(got)],
+              "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms,
+              "plain_ms": p_ms, "plain_products": products, "imul": imuls,
+              "bound_ms": table[name]["bound_ms"]})
         if not ok:
             raise SystemExit(f"kernel {name} disagrees with its plain version")
     dead_out = (fold.fold_g1(lo1, hi1, xbits)[dead] == 0).all() and \
@@ -177,6 +384,35 @@ def main():
     if not torch.equal(miller.miller_product(a_inf, b_inf),
                        miller.miller_product(a_inf[live], b_inf[live])):
         raise SystemExit("infinity lanes did not contribute 1 to the Miller product")
+    # K6 edge lanes against hostref: offset + [k] x on the host
+    for out, x, off, dec, add, mul in (
+            (exp.exp_g1(ex1, eo1, edge_bits), ex1, eo1, curves.g1_decode, hostref.g1_add,
+             hostref.g1_mul),
+            (exp.exp_g2(ex2, eo2, edge_bits), ex2, eo2, curves.g2_decode, hostref.g2_add,
+             hostref.g2_mul)):
+        lanes = x_inf + off_inf + off_eq
+        xh, oh = dec(x[lanes]), dec(off[lanes])
+        want = [add(o, mul(p, ks[i]) if p is not None else None)
+                for p, o, i in zip(xh, oh, lanes)]
+        if dec(out[lanes]) != want:
+            raise SystemExit("K6 edge lanes differ from offset + [k]x on the host")
+
+    # the digest -> challenge step of K4 on digests with zero digits
+    digests = [[1, 2, 3, 4], [0x123456789ABCDEF0, 2**64 - 2**32, 1, 2**63],
+               [0xDEADBEEF, 5, 0, 0xFFFFFFFF], [0, 0, 0, 0], [0, 2**32, 0x7FFFFFFF, 0],
+               [2**32, 0, 0, 7]]
+    canon = torch.tensor([[[(d >> (16 * t)) & 0xFFFF for t in range(4)] + [0] for d in ds]
+                          for ds in digests], dtype=torch.int64)
+    q_got = transcript.digest_to_challenge_limbs(canon.to(dev)).cpu()
+    q_want = transcript.digest_to_challenge_limbs(canon)
+    q_host = [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in q_want]
+    q_ok = torch.equal(q_got, q_want) and all(
+        v % params.R == host_transcript.challenge_from_digest(ds)
+        for v, ds in zip(q_host, digests))
+    emit({"phase": "kernel_quirk", "name": "digest_to_challenge", "digests": len(digests),
+          "bit_equal": q_ok, "tolerance": 0})
+    if not q_ok:
+        raise SystemExit("the digest -> challenge step disagrees with the plain version")
 
     # ------------------------------------------------------ 3. aggregation
     z = ate.inner_product(a, b)
@@ -200,49 +436,144 @@ def main():
                 (miller.miller_product, "pair_launches", "miller_product_pair"),
                 (fexp.final_exp, "launches", "final_exp"),
                 (fold.fold_g1, "launches", "fold_g1"),
-                (fold.fold_g2, "launches", "fold_g2")]
-    for fn, attr, _ in counters:
-        setattr(fn, attr, 0)
-    torch.cuda.synchronize()
-    t = time.time()
-    proof = sipp_prove(a, b)
-    torch.cuda.synchronize()
-    prove_s = time.time() - t
-    t = time.time()
-    stmt = sipp_verify(a, b, proof)
-    verify_s = time.time() - t
-    launches = {name: getattr(fn, attr) for fn, attr, name in counters}
-    if tuple(proof.shape) != (2 * 7 + 1, 2, 3, 2, 16) or not torch.equal(proof[-1], z):
-        raise SystemExit("proof has the wrong shape or does not end with Z")
-    if tower.fq12_decode(z) != stmt.Z:
-        raise SystemExit("statement Z differs from the aggregation")
-    bad = proof.clone()
+                (fold.fold_g2, "launches", "fold_g2"),
+                (transcript.transcript_append_fq12, "launches", "transcript_append_fq12"),
+                (transcript.transcript_round_tail, "launches", "transcript_round_tail"),
+                (exp.exp_g1, "launches", "exp_g1"),
+                (exp.exp_g2, "launches", "exp_g2")]
+
+    def driven(fn):
+        """Run fn with every launch counter set to 0 just before; returns
+        (result, seconds, counts read just after)."""
+        for f, attr, _ in counters:
+            setattr(f, attr, 0)
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t, {name: getattr(f, attr) for f, attr, name in counters}
+
+    @contextlib.contextmanager
+    def msm_mode(mode):
+        old = os.environ.get("SIPP_VERIFY_MSM")
+        os.environ["SIPP_VERIFY_MSM"] = mode
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ["SIPP_VERIFY_MSM"]
+            else:
+                os.environ["SIPP_VERIFY_MSM"] = old
+
+    def rejects(proof):
+        try:
+            sipp_verify(a, b, proof)
+        except VerificationError:
+            return True
+        return False
+
+    (proof_h, tr_h), prove_host_s, launches_a1 = driven(
+        lambda: sipp_prove(a, b, return_transcript=True))
+    with msm_mode("0"):
+        stmt_fold, verify_fold_s, launches_a2 = driven(lambda: sipp_verify(a, b, proof_h))
+    (proof_o, tr_o), prove_onchip_s, launches_b = driven(
+        lambda: sipp_prove_onchip(a, b, return_transcript=True))
+    with msm_mode("auto"):
+        stmt_msm, verify_msm_s, launches_c = driven(lambda: sipp_verify(a, b, proof_o))
+    launches_a = {k: launches_a1[k] + launches_a2[k] for k in launches_a1}
+    paths = {"A": launches_a, "B": launches_b, "C": launches_c}
+    needed = {"A": ["miller_product", "miller_product_pair", "final_exp", "fold_g1", "fold_g2"],
+              "B": ["miller_product", "miller_product_pair", "final_exp", "fold_g1", "fold_g2",
+                    "transcript_append_fq12", "transcript_round_tail"],
+              "C": ["miller_product", "final_exp", "exp_g1", "exp_g2"]}
+    same_proof = np.array_equal(convert.to_reference(proof_o), convert.to_reference(proof_h))
+    same_state = tr_o.state == tr_h.state
+    bad = proof_o.clone()
     bad[1, 0, 0, 0, 0] = (bad[1, 0, 0, 0, 0] + 1) % 0xFFFF
+    with msm_mode("auto"):
+        rejected_msm = rejects(bad)
+    with msm_mode("0"):
+        rejected_fold = rejects(bad)
+    if tuple(proof_h.shape) != (2 * 7 + 1, 2, 3, 2, 16) or not torch.equal(proof_h[-1], z):
+        raise SystemExit("proof has the wrong shape or does not end with Z")
+    if tower.fq12_decode(z) != stmt_fold.Z:
+        raise SystemExit("statement Z differs from the aggregation")
+
+    # the on-chip rounds again, where any host sync raises
+    state0 = FGL.encode(prover.prologue(a, b).state, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
     try:
-        sipp_verify(a, b, bad)
-    except VerificationError:
-        rejected = True
-    else:
-        rejected = False
-    emit({"phase": "protocol", "n": N, "prove_s": prove_s, "verify_s": verify_s,
-          "accepted": True, "tampered_rejected": rejected, "launches": launches, "card": smi})
-    if not rejected or min(launches.values()) < 1:
-        raise SystemExit("tampered proof accepted or a kernel of the path never ran")
+        proof_s, state_s = prover.onchip_rounds(a, b, state0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    no_sync = torch.equal(proof_s, proof_o) and FGL.decode(state_s) == tr_o.state
+    round_times = []
+    sipp_prove_onchip(a, b, round_times=round_times)
+    fold_round_ms = statistics.median(round_times) * 1e3
+    steady = {}
+    for name, fn in (("prove_host_s", lambda: sipp_prove(a, b)),
+                     ("prove_onchip_s", lambda: sipp_prove_onchip(a, b))):
+        steady[name] = driven(fn)[1]
+    for mode, name in (("0", "verify_fold_s"), ("auto", "verify_msm_s")):
+        with msm_mode(mode):
+            steady[name] = driven(lambda: sipp_verify(a, b, proof_o))[1]
+    # the MSM finals split: K6 (both groups) against tree sum + to_affine
+    xs_run = []
+    trr = prover.prologue(a, b)
+    trr.append_fq12(tower.fq12_decode(proof_o[-1]))
+    for k in range(7):
+        trr.append_fq12(tower.fq12_decode(proof_o[-2 - 2 * k]))
+        trr.append_fq12(tower.fq12_decode(proof_o[-3 - 2 * k]))
+        x = trr.get_challenge()
+        xs_run.append((x, pow(x, -1, params.R)))
+    ba, bb = (torch.as_tensor(v, device=dev) for v in verifier.msm_bits(xs_run, N))
+    k6_ms = kernel_ms(lambda: (exp.exp_g1(a, zeros_a, ba), exp.exp_g2(b, zeros_b, bb)), reps=3)
+    lanes_a, lanes_b = exp.exp_g1(a, zeros_a, ba), exp.exp_g2(b, zeros_b, bb)
+    torch.cuda.synchronize()
+    t = time.time()
+    fa = msm.msm_finish(G1, lanes_a)
+    fb = msm.msm_finish(G2, lanes_b)
+    torch.cuda.synchronize()
+    tree_ms = (time.time() - t) * 1e3
+    finals_ok = (curves.g1_decode(fa)[0], curves.g2_decode(fb)[0]) == \
+        (stmt_msm.final_A, stmt_msm.final_B)
+    idle = {"host_spine": idle_share(lambda: sipp_prove(a, b)),
+            "onchip": idle_share(lambda: sipp_prove_onchip(a, b))}
+    emit({"phase": "protocol", "n": N, "prove_host_s": prove_host_s,
+          "prove_onchip_s": prove_onchip_s, "verify_fold_s": verify_fold_s,
+          "verify_msm_s": verify_msm_s, "steady": steady,
+          "fold_round_latency_ms_n128": fold_round_ms,
+          "round_ms": [t * 1e3 for t in round_times],
+          "msm_finals_k6_ms": k6_ms, "msm_finals_tree_affine_ms": tree_ms,
+          "onchip_equals_host_spine": same_proof, "transcript_states_equal": same_state,
+          "rounds_without_host_sync": no_sync, "statements_equal": stmt_msm == stmt_fold,
+          "msm_finals_split_agrees": finals_ok, "tampered_rejected_msm": rejected_msm,
+          "tampered_rejected_fold": rejected_fold, "launches": paths, "idle": idle, "card": smi})
+    missing = [(p, k) for p, ks in needed.items() for k in ks if paths[p][k] < 1]
+    if not (same_proof and same_state and no_sync and stmt_msm == stmt_fold and finals_ok
+            and rejected_msm and rejected_fold) or missing:
+        raise SystemExit(f"a protocol check failed, or a kernel of a path never ran: {missing}")
 
     with np.load(GOLDEN) as g:
         a4 = convert.from_reference(g["a4"], dev)
         b4 = convert.from_reference(g["b4"], dev)
-        proof4 = sipp_prove(a4, b4)
-        stmt4 = sipp_verify(a4, b4, proof4)
-        same_proof = np.array_equal(convert.to_reference(proof4), g["proof4"])
-        same_stmt = np.array_equal(np.asarray(stmt4.to_vec(), np.uint32), g["stmt4"])
-    emit({"phase": "golden_n4", "proof_bytes_equal": same_proof, "statement_equal": same_stmt})
-    if not (same_proof and same_stmt):
+        proofs4 = {"host_spine": sipp_prove(a4, b4), "onchip": sipp_prove_onchip(a4, b4)}
+        same4 = {k: np.array_equal(convert.to_reference(v), g["proof4"])
+                 for k, v in proofs4.items()}
+        for mode in ("0", "auto"):
+            with msm_mode(mode):
+                stmt4 = sipp_verify(a4, b4, proofs4["onchip"])
+            same4[f"statement_msm_{mode}"] = np.array_equal(
+                np.asarray(stmt4.to_vec(), np.uint32), g["stmt4"])
+    emit({"phase": "golden_n4", "equal": same4})
+    if not all(same4.values()):
         raise SystemExit("the n = 4 golden proof or statement was not reproduced")
 
     # --------------------------------------------------------- 5. summary
-    for row in table.values():
-        row["launches"] = launches[row.pop("counter")]
+    for row in table.values():    # launches: the sum over the driven runs of A, B, C
+        counter = row.pop("counter")
+        row["launches"] = sum(launches[counter] for launches in paths.values())
     emit({"kernels": list(table.values())})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 
 Plain PyTorch functions on int64 16-bit-limb Montgomery tensors (the JAX
 package's device format), with hand-written CUDA kernels for the Miller
-product, the final exponentiation and the fold ladders (ops/).  Imports
+product, the final exponentiation, the fold ladders, the transcript tail and
+the per-lane exp ladders (ops/).  Imports
 torch, numpy, ctypes and the standard library only: never jax or sipp_tpu.
 """

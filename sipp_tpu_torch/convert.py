@@ -10,9 +10,22 @@ import numpy as np
 import torch
 
 
-def from_reference(arr, device="cpu"):
+def resolve_device(device) -> torch.device:
+    """The device an entry point was asked for.  The port's entry points run
+    on the card unless the caller names another device (the tests pass
+    device="cpu"); asking for CUDA where there is none raises, it never falls
+    back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device='cpu' to run the "
+                           "port's plain PyTorch versions on the CPU")
+    return device
+
+
+def from_reference(arr, device=torch.device("cuda")):
     """numpy uint32 limb array (an instance A or B, a proof, Fq12 values)
-    -> int64 tensor on `device`."""
+    -> int64 tensor on `device` (the card unless asked otherwise)."""
+    device = resolve_device(device)
     arr = np.asarray(arr)
     if arr.dtype != np.uint32 or (arr.size and int(arr.max()) > 0xFFFF):
         raise ValueError("expected a uint32 array of 16-bit limbs")

@@ -1,5 +1,6 @@
 """Plain PyTorch short-Weierstrass (a = 0) Jacobian arithmetic over Fq or Fq2
-(port of curves/weierstrass.py, with the fold ladder of ops/pallas_fold.py).
+(port of curves/weierstrass.py, with the ladders of ops/pallas_fold.py and
+ops/pallas_exp.py).
 
 Representations (int64 limb tensors, arbitrary leading batch dims):
     affine:   (..., 2, *coeff)   [x, y], the point at infinity is all-zero
@@ -41,6 +42,22 @@ class CurveOps:
         x = self._c(p, 0)
         return self._pt(x, self._c(p, 1), self.f.one_like(x))
 
+    def lift(self, p):
+        """Affine -> Jacobian with the all-zero affine point mapped to Z = 0
+        (jac_from_affine gives it Z = 1, which the complete add would take
+        for the point (0, 0))."""
+        return torch.where(self._expand(self.is_affine_infinity(p)), 0, self.jac_from_affine(p))
+
+    def jac_infinity(self, batch_shape=(), device="cpu"):
+        shape = (*batch_shape, 3) + (2,) * (self.f.ndim - 1) + (self.F.L,)
+        return torch.zeros(shape, dtype=torch.int64, device=device)
+
+    def neg(self, p):
+        """Flip Y (affine or Jacobian)."""
+        coords = list(p.unbind(-1 - self.f.ndim))
+        coords[1] = self.F.neg(coords[1])
+        return self._pt(*coords)
+
     # --------------------------------------------------------------- dbl/add
 
     def dbl(self, p):
@@ -79,6 +96,28 @@ class CurveOps:
             out = torch.where(self._expand(dbl_case), dbl_q, out)
         out = torch.where(self._expand(f.is_zero(Z)), self.jac_from_affine(q_aff), out)
         return torch.where(self._expand(self.is_affine_infinity(q_aff)), p, out)
+
+    def add(self, p, q):
+        """Complete Jacobian + Jacobian: P == Q doubles, either side at
+        infinity gives the other, P == -Q gives infinity (Z3 = 0)."""
+        f, F = self.f, self.F
+        X1, Y1, Z1 = self._c(p, 0), self._c(p, 1), self._c(p, 2)
+        X2, Y2, Z2 = self._c(q, 0), self._c(q, 1), self._c(q, 2)
+        Z1Z1, Z2Z2 = f.mul(torch.stack([Z1, Z2]), torch.stack([Z1, Z2])).unbind(0)
+        U1, U2, S1p, S2p = f.mul(torch.stack([X1, X2, Y1, Y2]),
+                                 torch.stack([Z2Z2, Z1Z1, Z2Z2, Z1Z1])).unbind(0)
+        S1, S2 = f.mul(torch.stack([S1p, S2p]), torch.stack([Z2, Z1])).unbind(0)
+        H, R = F.reduce(torch.stack([F.subs(U2, U1), F.subs(S2, S1)]), 3).unbind(0)
+        HH, RR = f.mul(torch.stack([H, R]), torch.stack([H, R])).unbind(0)
+        HHH, V, Z1Z2 = f.mul(torch.stack([H, U1, Z1]), torch.stack([HH, HH, Z2])).unbind(0)
+        X3 = F.reduce(F.subs(RR, HHH, V, V), 7)
+        t = f.mul(torch.stack([R, S1, Z1Z2]),
+                  torch.stack([F.reduce(F.subs(V, X3), 3), HHH, H]))
+        out = self._pt(X3, F.reduce(F.subs(t[0], t[1]), 3), t[2])
+        dbl_case = f.is_zero(H) & f.is_zero(R) & ~f.is_zero(Z1) & ~f.is_zero(Z2)
+        out = torch.where(self._expand(dbl_case), self.dbl(p), out)
+        out = torch.where(self._expand(f.is_zero(Z1)), q, out)
+        return torch.where(self._expand(f.is_zero(Z2)), p, out)
 
     def to_affine(self, p):
         """Jacobian -> affine; infinity maps to (0, 0)."""
@@ -119,3 +158,21 @@ class CurveOps:
             if bit:
                 acc = self.add_mixed(acc, q_aff, dbl_q)
         return acc
+
+    def scalar_mul_per_lane(self, q_aff, bits):
+        """[k_i] Q_i with per-lane scalars: bits (254, *batch) MSB-first (a
+        tensor on the points' device).  The ladder of ops/pallas_exp.py:
+        from infinity, double, add Q (incomplete; infinity-safe on both
+        sides) and select on the lane's bit.  Returns jacobian."""
+        acc = self.jac_infinity(q_aff.shape[:-1 - self.f.ndim], q_aff.device)
+        for bit in bits.unbind(0):
+            acc = self.dbl(acc)
+            acc = torch.where(self._expand(bit != 0), self.add_mixed(acc, q_aff), acc)
+        return acc
+
+    def exp_with_offset(self, x_aff, offset_aff, bits):
+        """offset + [k_i] x_i per lane, jacobian: the per-lane ladder, then
+        the complete mixed add of the offset (P == Q doubles; an offset at
+        infinity leaves the ladder's point), as ops/pallas_exp.py does."""
+        dbl_off = self.dbl(self.jac_from_affine(offset_aff))
+        return self.add_mixed(self.scalar_mul_per_lane(x_aff, bits), offset_aff, dbl_off)

@@ -97,7 +97,7 @@ class Field:
         c = bigint.int_to_limbs(2 * p, L).tolist()
         self._d = [c[0] + (1 << LIMB_BITS)] + [v + MASK for v in c[1:-1]] + [c[-1] - 1]
         assert sum(v << (LIMB_BITS * i) for i, v in enumerate(self._d)) == 2 * p
-        assert min(self._d[:-1]) > MASK and self._d[-1] >= p >> (LIMB_BITS * (L - 1))
+        assert min(self._d[:-1]) >= MASK and self._d[-1] >= p >> (LIMB_BITS * (L - 1))
 
     # ------------------------------------------------------------ constants
 
@@ -119,6 +119,8 @@ class Field:
             "p": t(bigint.int_to_limbs(self.p, L).tolist()),
             "np": t(bigint.int_to_limbs(self.n_prime, L).tolist()),
             "one": t(bigint.int_to_limbs(self.R % self.p, L).tolist()),
+            "raw_one": t(bigint.int_to_limbs(1, L).tolist()),
+            "r2": t(bigint.int_to_limbs(self.R2, L).tolist()),
             "d": t(self._d),
             # mul's candidates sit above the L low limbs of U = T + m p
             "mul_cands": cands(5, L),
@@ -210,10 +212,12 @@ class Field:
         return self._pick(rows, L, 2 * L)
 
     def to_mont(self, a):
-        return self.mul(a, self.encode(self.R2, a.device, mont=False))
+        """a R mod p for canonical a, or for any a below R (a 16-bit-limb
+        integer is reduced mod p on the way)."""
+        return self.mul(a, self.c(a, "r2"))
 
     def from_mont(self, a):
-        return self.mul(a, self.encode(1, a.device, mont=False))
+        return self.mul(a, self.c(a, "raw_one"))
 
     def pow_bits(self, x, bits):
         """x^e for e given as an MSB-first list of bits (host ints)."""

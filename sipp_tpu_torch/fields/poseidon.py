@@ -1,5 +1,6 @@
-"""Poseidon permutation over Goldilocks (width 12, rate 8, capacity 4): the
-host half of sipp_tpu/fields/poseidon.py, carried over unchanged.
+"""Poseidon permutation over Goldilocks (width 12, rate 8, capacity 4): port
+of sipp_tpu/fields/poseidon.py, host half carried over unchanged, device half
+in plain PyTorch over FGL.
 
 plonky2's Hades structure: x^7 S-box, 4 + 4 full rounds around 22 partial
 rounds, constants added before each S-box layer, then plonky2's circulant MDS
@@ -8,14 +9,23 @@ rounds, constants added before each S-box layer, then plonky2's circulant MDS
 table is not used), and SIPP_POSEIDON_RC_FILE swaps in an external table of
 360 u64s (JSON list, or whitespace/comma-separated decimal/hex ints,
 row-major round-then-lane) exactly as the JAX package reads it.  The native
-transcript (native.py) takes its constants from here; this pure-Python
-permutation is its test oracle.
+transcript (native.py) and the CUDA transcript kernels (ops/transcript.py)
+take their constants from here; this pure-Python permutation is their test
+oracle.
+
+The device half (permute_device, hash_no_pad_device) works on (..., 12, 5)
+Montgomery Goldilocks limbs, the format of sipp_tpu's FGL; every step is
+canonical, so its values equal the JAX package's limb for limb.
 """
 
+import functools
 import hashlib
 import os
 
+import torch
+
 from .. import params
+from . import FGL
 
 P = params.GOLDILOCKS_P
 WIDTH = 12
@@ -108,3 +118,46 @@ def hash_no_pad(inputs):
         state[: len(chunk)] = [x % P for x in chunk]
         state = permute(state)
     return state[:4]
+
+
+# ------------------------------------------------------------------ device
+
+@functools.lru_cache(maxsize=None)
+def _tables(device):
+    """(_RC_MONT (30, 12, 5), _MDS_MONT (12, 12, 5)) on `device`, built from
+    ROUND_CONSTANTS (so the SIPP_POSEIDON_RC_FILE hook reaches them)."""
+    rc = FGL.encode([c for row in ROUND_CONSTANTS for c in row], device)
+    mds = FGL.encode([v for row in MDS for v in row], device)
+    return rc.reshape(N_ROUNDS, WIDTH, FGL.L), mds.reshape(WIDTH, WIDTH, FGL.L)
+
+
+def _sbox_dev(x):
+    x2 = FGL.mul(x, x)
+    x4 = FGL.mul(x2, x2)
+    return FGL.mul(FGL.mul(x4, x2), x)
+
+
+def permute_device(state):
+    """One permutation of (..., 12, 5) Montgomery Goldilocks limbs."""
+    rc, mds = _tables(state.device)
+    s = state
+    for r in range(N_ROUNDS):
+        s = FGL.add(s, rc[r])
+        if N_FULL <= r < N_FULL + N_PARTIAL:
+            s = torch.cat([_sbox_dev(s[..., :1, :]), s[..., 1:, :]], dim=-2)
+        else:
+            s = _sbox_dev(s)
+        # out[i] = sum_j MDS[i][j] s[j]: one stacked product, then a lazy sum
+        # of 12 canonical values (< 12 p, limbs < 2^20) and one reduction
+        s = FGL.reduce(FGL.mul(mds, s[..., None, :, :]).sum(dim=-2), WIDTH)
+    return s
+
+
+def hash_no_pad_device(inputs):
+    """hash_no_pad on (..., K, 5) Montgomery limbs -> (..., 4, 5)."""
+    K = inputs.shape[-2]
+    state = inputs.new_zeros((*inputs.shape[:-2], WIDTH, FGL.L))
+    for i in range(0, K, RATE):
+        chunk = inputs[..., i:i + RATE, :]
+        state = permute_device(torch.cat([chunk, state[..., chunk.shape[-2]:, :]], dim=-2))
+    return state[..., :4, :]

@@ -3,9 +3,12 @@
 Two libraries, both plain C interfaces loaded with ctypes:
 
 * the CUDA kernels (K1 Miller product, K2 final exponentiation, K3 fold
-  ladders): sipp_tpu_torch/csrc/*.cu + bn254.cuh, compiled by nvcc for
-  sm_90a, with a generated header of BN254 constants derived from
-  params/hostref (so no constant is typed by hand in the CUDA sources);
+  ladders, K4/K5 transcript tail, K6 per-lane exp ladders):
+  sipp_tpu_torch/csrc/*.cu with their headers, compiled by nvcc for sm_90a,
+  one nvcc process per source, all started together, then linked; with two
+  generated headers of constants derived from params/hostref and
+  fields/poseidon (so no constant is typed by hand in the CUDA sources, and a
+  SIPP_POSEIDON_RC_FILE table builds its own library);
 * the host library of the repo's csrc/ (Poseidon transcript chain, Fq12
   pow/mul), compiled by g++ (see native.py).
 
@@ -29,9 +32,10 @@ import torch
 PKG = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "build"
 CUDA_SRC = PKG / "csrc"
-CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu")
+CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu", "transcript.cu", "exp.cu")
+CUDA_HEADERS = ("bn254.cuh", "curve.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # filled by cuda_library(): wall seconds of the call (near 0 when the
 # library was already built) and the compiler's report (ptxas registers,
@@ -47,10 +51,10 @@ def _digest(parts) -> str:
     return h.hexdigest()[:16]
 
 
-def compile_shared(tag: str, cmd: list, sources: list, extra: tuple = ()):
+def compile_shared(tag: str, cmd: list, sources: list):
     """Compile `sources` with `cmd` (+ -o OUT) into BUILD_DIR, unless a
     library of identical inputs is already there.  Returns (path, log)."""
-    key = _digest([*cmd, *(pathlib.Path(s).read_bytes() for s in sources), *extra])
+    key = _digest([*cmd, *(pathlib.Path(s).read_bytes() for s in sources)])
     out = BUILD_DIR / f"lib{tag}_{key}.so"
     if out.exists():
         return out, ""
@@ -72,7 +76,8 @@ def _words(x: int, n: int = 8):
 
 
 def _arr(name: str, ctype: str, dims: str, flat) -> str:
-    body = ", ".join(str(v) if ctype != "uint32_t" else f"0x{v:08x}u" for v in flat)
+    fmt = {"uint32_t": "0x{:08x}u", "uint64_t": "0x{:016x}ull"}.get(ctype, "{}")
+    body = ", ".join(fmt.format(v) for v in flat)
     return f"static __constant__ {ctype} {name}{dims} = {{{body}}};\n"
 
 
@@ -117,6 +122,38 @@ def params_header() -> str:
     return text
 
 
+def transcript_header() -> str:
+    """Constants of the transcript kernels: Goldilocks (canonical u64, with
+    2^80 mod p and its inverse for the (4, 5) Montgomery state format), the
+    Poseidon tables of fields/poseidon.py, and r in 8 x 32-bit words with
+    N' = -r^-1 mod 2^32, R^2 mod r, R mod r and r - 2 (R = 2^256)."""
+    from .. import params
+    from ..fields import poseidon
+
+    G, R = params.GOLDILOCKS_P, params.R
+    lines = ["// Generated by sipp_tpu_torch/ops/_build.py from params and "
+             "fields/poseidon.", "#pragma once", "#include <cstdint>",
+             f"#define GL_P 0x{G:016x}ull",
+             f"#define GL_EPS 0x{(1 << 64) - G:016x}ull",
+             f"#define GL_R80 0x{(1 << 80) % G:016x}ull",
+             f"#define GL_RINV 0x{pow(1 << 80, -1, G):016x}ull",
+             f"#define PSD_W {poseidon.WIDTH}", f"#define PSD_RATE {poseidon.RATE}",
+             f"#define PSD_N_FULL {poseidon.N_FULL}",
+             f"#define PSD_N_PARTIAL {poseidon.N_PARTIAL}",
+             f"#define PSD_ROUNDS {poseidon.N_ROUNDS}",
+             f"#define FR_N0 0x{(-pow(R, -1, 1 << 32)) % (1 << 32):08x}u"]
+    lines += [f"#define FR_P{i} 0x{w:08x}u" for i, w in enumerate(_words(R))]
+    text = "\n".join(lines) + "\n"
+    text += _arr("FR_R2", "uint32_t", "[8]", _words((1 << 512) % R))
+    text += _arr("FR_ONE", "uint32_t", "[8]", _words((1 << 256) % R))
+    text += _arr("FR_RM2", "uint32_t", "[8]", _words(R - 2))
+    text += _arr("PSD_RC", "uint64_t", f"[{poseidon.N_ROUNDS * poseidon.WIDTH}]",
+                 [c for row in poseidon.ROUND_CONSTANTS for c in row])
+    text += _arr("PSD_MDS", "uint32_t", f"[{poseidon.WIDTH ** 2}]",
+                 [v for row in poseidon.MDS for v in row])
+    return text
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
@@ -124,21 +161,52 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _build_cuda(cmd: list, inc: pathlib.Path, key: str) -> tuple:
+    """One nvcc -c per source, all running at once, then one nvcc link."""
+    out = BUILD_DIR / f"libsipp_cuda_{key}.so"
+    if out.exists():
+        return out, ""
+    objdir = BUILD_DIR / f"obj_{key}.{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
+    procs = [(src, subprocess.Popen(
+        [*cmd, f"-I{inc}", f"-I{CUDA_SRC}", "-c", "-o", str(objdir / f"{src}.o"),
+         str(CUDA_SRC / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in CUDA_SOURCES]
+    logs, failed = [], []
+    for src, proc in procs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError(f"building {', '.join(failed)} failed:\n" + "\n".join(logs))
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    link = subprocess.run([cmd[0], "-shared", "-o", str(tmp),
+                           *(str(objdir / f"{src}.o") for src in CUDA_SOURCES)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the CUDA library failed:\n{link.stdout}\n{link.stderr}")
+    os.replace(tmp, out)
+    shutil.rmtree(objdir, ignore_errors=True)
+    return out, "".join(logs)
+
+
 @functools.lru_cache(maxsize=None)
 def cuda_library():
     """Build (or find) and load the kernels' shared library."""
-    header = params_header()
-    inc = BUILD_DIR / f"include_{_digest([header])}"
-    if not (inc / "bn254_params.cuh").exists():
-        inc.mkdir(parents=True, exist_ok=True)
-        tmp = inc / f"bn254_params.cuh.{os.getpid()}.tmp"
-        tmp.write_text(header)
-        os.replace(tmp, inc / "bn254_params.cuh")
+    headers = {"bn254_params.cuh": params_header(),
+               "transcript_params.cuh": transcript_header()}
+    inc = BUILD_DIR / f"include_{_digest(headers.values())}"
+    for name, text in headers.items():
+        if not (inc / name).exists():
+            inc.mkdir(parents=True, exist_ok=True)
+            tmp = inc / f"{name}.{os.getpid()}.tmp"
+            tmp.write_text(text)
+            os.replace(tmp, inc / name)
     t0 = time.time()
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{inc}", f"-I{CUDA_SRC}"]
-    path, log = compile_shared(
-        "sipp_cuda", cmd, [CUDA_SRC / s for s in CUDA_SOURCES],
-        extra=((CUDA_SRC / "bn254.cuh").read_bytes(), header))
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    key = _digest([*cmd, *headers.values(),
+                   *((CUDA_SRC / f).read_bytes() for f in CUDA_SOURCES + CUDA_HEADERS)])
+    path, log = _build_cuda(cmd, inc, key)
     BUILD_INFO.update(seconds=time.time() - t0, log=log, path=str(path))
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -147,6 +215,11 @@ def cuda_library():
         "sipp_final_exp": [vp, vp, ci, vp],
         "sipp_fold_g1": [vp, vp, vp, vp, ci, vp],
         "sipp_fold_g2": [vp, vp, vp, vp, ci, vp],
+        "sipp_transcript_append_fq12": [vp, vp, vp, vp],
+        "sipp_transcript_round_tail": [vp, vp, vp, vp, vp, vp, vp],
+        "sipp_digest_to_challenge": [vp, vp, ci, vp],
+        "sipp_exp_g1": [vp, vp, vp, vp, ci, vp],
+        "sipp_exp_g2": [vp, vp, vp, vp, ci, vp],
     }.items():
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -163,11 +236,13 @@ def check_launch(lib, err: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed ({err}: {msg})")
 
 
-def check_cuda_input(x, name: str, shape_tail: tuple):
-    """Kernel inputs: contiguous int64 limb tensors with the given trailing
-    shape."""
+def check_cuda_input(x, name: str, shape_tail: tuple, device=None):
+    """Kernel inputs: contiguous int64 tensors with the given trailing shape,
+    on `device` when one is given."""
     if x.dtype != torch.int64:
         raise TypeError(f"{name}: expected torch.int64 limbs, got {x.dtype}")
     if tuple(x.shape[-len(shape_tail):]) != shape_tail:
         raise ValueError(f"{name}: expected trailing shape {shape_tail}, got {tuple(x.shape)}")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
     return x.contiguous()

@@ -21,8 +21,10 @@ def fold_g2_plain(lo, hi, bits):
 
 
 def _fold(wrapper, lo, hi, bits, plain, tail):
-    """lo, hi: (n, *tail) affine int64 limbs; bits: (254,) MSB-first host
-    bits of the shared scalar.  Counts the launch on `wrapper`."""
+    """lo, hi: (n, *tail) affine int64 limbs; bits: (254,) MSB-first bits of
+    the shared scalar, on the host or as an int64 tensor on the points'
+    device (the on-chip prover's: then no host round trip).  Counts the
+    launch on `wrapper`."""
     which = wrapper.__name__
     if lo.shape != hi.shape or len(bits) != 254:
         raise ValueError(f"{which}: bad shapes {tuple(lo.shape)}, {tuple(hi.shape)}, "
@@ -32,9 +34,12 @@ def _fold(wrapper, lo, hi, bits, plain, tail):
     if lo.device.type != "cuda":
         raise ValueError(f"{which}: unsupported device {lo.device}")
     lo = _build.check_cuda_input(lo, "lo", tail)
-    hi = _build.check_cuda_input(hi, "hi", tail)
+    hi = _build.check_cuda_input(hi, "hi", tail, lo.device)
     lib = _build.cuda_library()
-    bits_t = torch.as_tensor([int(b) for b in bits], dtype=torch.int64).to(lo.device)
+    if isinstance(bits, torch.Tensor) and bits.device.type == "cuda":
+        bits_t = _build.check_cuda_input(bits, "bits", (254,), lo.device)
+    else:
+        bits_t = torch.as_tensor([int(b) for b in bits], dtype=torch.int64).to(lo.device)
     out = torch.empty_like(lo)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream

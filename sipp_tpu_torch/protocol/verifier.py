@@ -1,25 +1,77 @@
-"""SIPP verifier, fold-ladder finals (port of sipp_tpu/protocol/verifier.py
-with SIPP_VERIFY_MSM=0).
+"""SIPP verifier (port of sipp_tpu/protocol/verifier.py).
 
 Entry validation (validate.py) first; then the host replays the transcript
 and the Z' chain Z' = Z_L^x * Z * Z_R^(x^-1) on the native C++ Fq12 pow/mul,
-popping the proof from the back; the device folds A and B with the same
-challenges (one K3 launch per group and round); finally
-e(final_A, final_B) == final_Z is checked with one K1 + K2 aggregation.
-The MSM-form finals of the JAX package (per-lane exp kernels) are not part
-of this port yet.
+popping the proof from the back.  The finals final_A, final_B come from one
+of two forms of the same group elements (so the same canonical bytes):
+
+- fold ladders: the device folds A and B with the challenges, one K3 launch
+  per group and round;
+- MSM finals: final_A = sum_j [c_j] A_j with c_j = prod_k x_k^bit_k(j)
+  (bit_1 the MSB of j), final_B the x^-1 twin: one K6 launch per group with a
+  zero offset (the per-lane ladders), then a complete-add tree and to_affine
+  in plain PyTorch on the device (ops/msm.py), as the JAX package leaves them
+  to XLA.
+
+SIPP_VERIFY_MSM picks the form as in the JAX package: "auto" (the default)
+takes MSM finals for CUDA tensors and fold ladders for CPU tensors, "1"
+always MSM finals, "0" never.  Finally e(final_A, final_B) == final_Z is
+checked with one K1 + K2 aggregation.
 """
+
+import os
+
+import numpy as np
+import torch
 
 from .. import curves, native, params
 from ..curves import scalar_to_bits
 from ..fields import tower
-from ..ops import fold
+from ..ops import exp, fold, msm
 from ..pairing import ate
 from . import validate
 from .prover import check_shapes
 from .statements import SIPPStatement
 from .transcript import Transcript
 from .validate import VerificationError
+
+
+def _use_msm(device) -> bool:
+    """SIPP_VERIFY_MSM for points on `device`: "auto" (the default) takes
+    the MSM finals for CUDA tensors only, "1" always, "0" never."""
+    mode = os.environ.get("SIPP_VERIFY_MSM", "auto")
+    if mode not in ("auto", "0", "1"):
+        raise ValueError(f"SIPP_VERIFY_MSM must be auto, 0 or 1, got {mode!r}")
+    return mode == "1" or (mode == "auto" and device.type == "cuda")
+
+
+def msm_bits(xs, n: int):
+    """The per-lane scalars of the MSM finals as (254, n) MSB-first bit
+    planes for A and B: c_j = prod_k x_k^bit_k(j), d_j with x_k^-1, where
+    xs = [(x_k, x_k^-1), ...] in round order and bit_1 is the MSB of j."""
+    logn = len(xs)
+    bits_a = np.empty((254, n), np.int64)
+    bits_b = np.empty((254, n), np.int64)
+    for j in range(n):
+        c = d = 1
+        for k, (x, x_inv) in enumerate(xs):
+            if (j >> (logn - 1 - k)) & 1:
+                c = c * x % params.R
+                d = d * x_inv % params.R
+        bits_a[:, j] = scalar_to_bits(c)
+        bits_b[:, j] = scalar_to_bits(d)
+    return bits_a, bits_b
+
+
+def _finals_msm(a_g1, b_g2, xs):
+    """final_A, final_B as (1, ...) affine: K6 with a zero offset, then the
+    complete-add tree and to_affine."""
+    finals = []
+    for curve, k6, pts, bits in zip((curves.G1, curves.G2), (exp.exp_g1, exp.exp_g2),
+                                    (a_g1, b_g2), msm_bits(xs, a_g1.shape[0])):
+        lanes = k6(pts, torch.zeros_like(pts), torch.as_tensor(bits, device=pts.device))
+        finals.append(msm.msm_finish(curve, lanes))
+    return finals
 
 
 def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
@@ -42,6 +94,7 @@ def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
     tr.append_fq12(proof_ints[idx])
     idx -= 1
     sched = []
+    n0 = n
     while n > 1:
         tr.append_fq12(proof_ints[idx])
         tr.append_fq12(proof_ints[idx - 1])
@@ -54,9 +107,12 @@ def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
         sched.append((n, x, x_inv))
 
     a, b = a_g1, b_g2
-    for m, x, x_inv in sched:
-        a = fold.fold_g1(a[:m], a[m:], scalar_to_bits(x))
-        b = fold.fold_g2(b[:m], b[m:], scalar_to_bits(x_inv))
+    if n0 > 1 and _use_msm(a_g1.device):
+        a, b = _finals_msm(a_g1, b_g2, [(x, x_inv) for _, x, x_inv in sched])
+    else:
+        for m, x, x_inv in sched:
+            a = fold.fold_g1(a[:m], a[m:], scalar_to_bits(x))
+            b = fold.fold_g2(b[:m], b[m:], scalar_to_bits(x_inv))
 
     final_z = native.fq12_u64_to_tower_ints(z_u)
     stmt = SIPPStatement(A=a_host, B=b_host, Z=proof_ints[-1],

@@ -2,8 +2,10 @@
 sipp_tpu.utils.testing for the same (n, seed)."""
 
 import numpy as np
+import torch
 
 from .. import curves, hostref, params
+from ..convert import resolve_device
 
 
 def random_points(n: int, seed: int = 0):
@@ -18,7 +20,9 @@ def random_points(n: int, seed: int = 0):
     return A, B
 
 
-def random_instance(n: int, seed: int = 0, device="cpu"):
-    """(A, B) as (n, 2, 16) and (n, 2, 2, 16) int64 limb tensors."""
+def random_instance(n: int, seed: int = 0, device=torch.device("cuda")):
+    """(A, B) as (n, 2, 16) and (n, 2, 2, 16) int64 limb tensors on `device`
+    (the card unless asked otherwise)."""
+    device = resolve_device(device)
     A, B = random_points(n, seed)
     return curves.g1_encode(A, device), curves.g2_encode(B, device)

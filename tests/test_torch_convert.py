@@ -1,9 +1,10 @@
 """Carry-across between the JAX package and the port, the port's instance
 generator, and the rule that the port never loads JAX."""
 
+import inspect
+import pathlib
 import subprocess
 import sys
-import pathlib
 
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ from sipp_tpu_torch.utils.testing import random_instance
 def test_round_trip():
     rng = np.random.default_rng(0)
     arr = rng.integers(0, 1 << 16, size=(3, 2, 3, 2, 16)).astype(np.uint32)
-    t = convert.from_reference(arr)
+    t = convert.from_reference(arr, device="cpu")
     assert t.dtype == torch.int64 and tuple(t.shape) == arr.shape
     back = convert.to_reference(t)
     assert back.dtype == np.uint32 and np.array_equal(back, arr)
@@ -25,19 +26,32 @@ def test_round_trip():
 
 def test_rejects_non_limbs():
     with pytest.raises(ValueError):
-        convert.from_reference(np.full((2, 16), 1 << 16, np.uint32))
+        convert.from_reference(np.full((2, 16), 1 << 16, np.uint32), device="cpu")
     with pytest.raises(ValueError):
-        convert.from_reference(np.zeros((2, 16), np.int64))
+        convert.from_reference(np.zeros((2, 16), np.int64), device="cpu")
     with pytest.raises(ValueError):
         convert.to_reference(torch.full((16,), -1, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("n,seed", [(2, 5), (4, 7)])
 def test_random_instance_matches_reference(n, seed):
-    a, b = random_instance(n, seed)
+    a, b = random_instance(n, seed, device="cpu")
     ja, jb = jax_instance(n, seed)
     assert np.array_equal(convert.to_reference(a), np.asarray(ja))
     assert np.array_equal(convert.to_reference(b), np.asarray(jb))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """random_instance and from_reference run on the card unless the caller
+    names another device, and raise where there is none: never a silent
+    fallback to the CPU."""
+    for fn in (random_instance, convert.from_reference):
+        assert inspect.signature(fn).parameters["device"].default == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        random_instance(2, seed=5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_reference(np.zeros((2, 16), np.uint32))
 
 
 def test_port_does_not_load_jax():

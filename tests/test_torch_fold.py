@@ -45,8 +45,8 @@ def challenge(golden):
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_fold_matches_reference(golden, challenge, group):
     x = challenge[0] if group == "g1" else challenge[1]
-    lo = convert.from_reference(golden[f"fold_{group}_lo"])
-    hi = convert.from_reference(golden[f"fold_{group}_hi"])
+    lo = convert.from_reference(golden[f"fold_{group}_lo"], device="cpu")
+    hi = convert.from_reference(golden[f"fold_{group}_hi"], device="cpu")
     wrapper = getattr(fold, f"fold_{group}")
     before = wrapper.launches
     got = wrapper(lo, hi, curves.scalar_to_bits(x))
@@ -64,7 +64,7 @@ def test_fold_matches_reference(golden, challenge, group):
 def test_fold_offset_at_infinity(golden, challenge):
     """A live hi with a dead lo folds to [x] hi (the kernel's infinity
     select on the offset)."""
-    a = convert.from_reference(golden["a2"])
+    a = convert.from_reference(golden["a2"], device="cpu")
     lo = torch.zeros_like(a)
     got = fold.fold_g1(lo, a, curves.scalar_to_bits(challenge[0]))
     assert curves.g1_decode(got) == [hostref.g1_mul(p, challenge[0])
@@ -72,6 +72,6 @@ def test_fold_offset_at_infinity(golden, challenge):
 
 
 def test_fold_rejects_bad_scalar_width(golden):
-    a = convert.from_reference(golden["a2"])
+    a = convert.from_reference(golden["a2"], device="cpu")
     with pytest.raises(ValueError):
         fold.fold_g1(a, a, [1] * 253)

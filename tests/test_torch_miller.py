@@ -36,7 +36,7 @@ def golden():
 
 
 def _t(arr):
-    return convert.from_reference(arr)
+    return convert.from_reference(arr, device="cpu")
 
 
 @pytest.mark.parametrize("n", [4, 2])

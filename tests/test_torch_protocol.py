@@ -41,18 +41,22 @@ def golden():
 
 @pytest.fixture(scope="module")
 def inst(golden):
-    return convert.from_reference(golden["a4"]), convert.from_reference(golden["b4"])
+    return tuple(convert.from_reference(golden[k], device="cpu") for k in ("a4", "b4"))
 
 
 @pytest.fixture(scope="module")
 def proof(golden):
     """The reference's proof: the verifier tests need no prover run (each
     xdist worker would repeat it)."""
-    return convert.from_reference(golden["proof4"])
+    return convert.from_reference(golden["proof4"], device="cpu")
 
 
 def test_prove_matches_reference_bytes(golden, inst):
-    assert np.array_equal(convert.to_reference(sipp_prove(*inst)), golden["proof4"])
+    """The proof bytes, and the final transcript state, which is the one the
+    JAX package's on-chip prover ends in."""
+    proof, tr = sipp_prove(*inst, return_transcript=True)
+    assert np.array_equal(convert.to_reference(proof), golden["proof4"])
+    assert tr.state == [int(v) for v in golden["onchip_state4"]]
 
 
 def test_verify_returns_reference_statement(golden, inst, proof):
@@ -144,8 +148,8 @@ def test_transcript_matches_reference_transcript(golden):
     from sipp_tpu import curves as jcurves
 
     ours, ref = Transcript(), JTranscript()
-    pts = (curves.g1_decode(convert.from_reference(golden["a4"])),
-           curves.g2_decode(convert.from_reference(golden["b4"])))
+    pts = (curves.g1_decode(convert.from_reference(golden["a4"], device="cpu")),
+           curves.g2_decode(convert.from_reference(golden["b4"], device="cpu")))
     assert pts == (jcurves.g1_decode(golden["a4"]), jcurves.g2_decode(golden["b4"]))
     ours.append_points(*pts)
     ref.append_points(*pts)
@@ -198,5 +202,5 @@ def test_live_jax_prove_matches_port():
 
     ja, jb = jax_instance(4, seed=21)
     want = np.asarray(jax_prove(ja, jb), dtype=np.uint32)
-    got = sipp_prove(convert.from_reference(np.asarray(ja)), convert.from_reference(np.asarray(jb)))
+    got = sipp_prove(*(convert.from_reference(np.asarray(x), device="cpu") for x in (ja, jb)))
     assert np.array_equal(convert.to_reference(got), want)

@@ -18,9 +18,41 @@ device format (16 x 16-bit Montgomery limbs):
                    G1/G2.to_affine(fold(lo, hi, bits)), lane 3 dead in both
   proof4           sipp_prove(a4, b4)
   stmt4            sipp_verify(a4, b4, proof4).to_vec() as uint32
+  perm_in/out      poseidon.permute_device on a seeded (12, 5) state
+  td_state, td_f1, td_f2
+                   a seeded (4, 5) Goldilocks transcript state and two
+                   seeded Fq12 values (canonical coefficients, Montgomery)
+  td_append        transcript_device.append_fq12(td_state, td_f1)
+  td_tail_state, td_tail_bits, td_tail_x, td_tail_xinv
+                   the XLA twin of transcript_round_tail: both appends,
+                   get_challenge, and FR.from_mont(FR.inv(FR.to_mont(x)))
+  exp_bits         (254, 4) per-lane scalar bits; lane 1's scalar is even
+  exp_g1_x/off/out, exp_g2_x/off/out
+                   offset + [k]x per lane, affine, at B = 4: lane 0 generic,
+                   lane 1 x at infinity, lane 2 offset at infinity, lane 3
+                   offset == [k]x.  The ladder is the XLA
+                   scalar_mul_per_lane; the offset add is pallas_exp's own
+                   _add_mixed_complete, run in interpret mode, because the
+                   XLA add_mixed has no affine-infinity select for the
+                   offset (verifier.py:55-56); then XLA to_affine.  On
+                   lanes 0 and 3 this equals G1/G2.exp_with_offset (checked)
+  onchip_proof4, onchip_state4
+                   sipp_prove_onchip(a4, b4, return_transcript=True) on the
+                   XLA path (tests/test_onchip.py), proof and the transcript
+                   state as four uint64
+  msm_inf_a, msm_inf_b, msm_inf_x
+                   the MSM finals at n = 4 on points with A_1 = O and B_2 = O,
+                   with two seeded challenges (16-bit limbs) that give A_1 an
+                   odd scalar and B_2 an even one
+  msm_inf_lanes_a/b  exp_g1_fused / exp_g2_fused with a zero offset (K6,
+                   interpret mode), per-lane affine products
+  msm_inf_fused_a/b  the verifier's fused-path finals from those lanes:
+                   to_affine(_tree_sum(jac_from_affine(lanes)))
+  msm_inf_xla_a/b    _finals_msm_dev on the CPU (its XLA branch,
+                   scalar_mul_per_lane then _tree_sum)
 
-Each stage runs in its own process, two at a time.  Usage (about a quarter
-of an hour on the CPU; XLA compiles dominate):
+Each stage runs in its own process, two at a time.  Usage (about twenty
+minutes on the CPU, most of it the XLA compile of the on-chip stage):
 
     JAX_PLATFORMS=cpu PYTHONPATH= python tools/make_torch_golden.py
 """
@@ -123,10 +155,137 @@ def stage_verify(g, proof4):
     g["stmt4"] = np.asarray(stmt.to_vec(), dtype=np.uint32)
 
 
+def stage_transcript(g):
+    from sipp_tpu.fields import FGL, FQ, FR, poseidon, tower
+    from sipp_tpu.protocol import transcript_device as td
+
+    rng = np.random.default_rng(2024)
+
+    def gl(k):
+        return FGL.encode([int.from_bytes(rng.bytes(8), "little") % FGL.p
+                           for _ in range(k)])
+
+    def fq12():
+        vals = [int.from_bytes(rng.bytes(40), "little") % params.P for _ in range(12)]
+        return tower.fq12_encode(tuple(tuple((vals[6 * i + 2 * j], vals[6 * i + 2 * j + 1])
+                                             for j in range(3)) for i in range(2)))
+
+    perm_in = gl(12)
+    g["perm_in"], g["perm_out"] = u32(perm_in), u32(poseidon.permute_device(perm_in))
+    state, f1, f2 = gl(4), fq12(), fq12()
+    g.update(td_state=u32(state), td_f1=u32(f1), td_f2=u32(f2))
+    g["td_append"] = u32(td.append_fq12(state, f1))
+    st = td.append_fq12(td.append_fq12(state, f1), f2)
+    bits, x = td.get_challenge(st)
+    g.update(td_tail_state=u32(st), td_tail_bits=u32(bits), td_tail_x=u32(x),
+             td_tail_xinv=u32(FR.from_mont(FR.inv(FR.to_mont(x)))))
+    assert FQ.L == FR.L == 16
+
+
+def _exp_complete(curve, ad, coeff, x, off, bits):
+    """to_affine(pallas_exp._add_mixed_complete(scalar_mul_per_lane(x, bits),
+    off)), the complete add in an interpret-mode pallas_call."""
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from sipp_tpu.ops import pallas_exp as pe
+    from sipp_tpu.ops import tmul
+
+    acc = curve.scalar_mul_per_lane(x, bits)
+    nd = acc.ndim
+    perm = tuple(range(1, nd)) + (0,)
+
+    def kernel(c_ref, p_ref, q_ref, o_ref):
+        with tmul.bound_consts(c_ref[:]):
+            o_ref[:] = pe._add_mixed_complete(p_ref[:], q_ref[:], ad)
+
+    out = pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((3,) + coeff + (16, x.shape[0]), jnp.uint32),
+        interpret=True,
+    )(jnp.asarray(tmul.CONSTS_NP), jnp.transpose(acc, perm), jnp.transpose(off, perm))
+    inv = (nd - 1,) + tuple(range(nd - 1))
+    return curve.to_affine(jnp.transpose(out, inv))
+
+
+def stage_exp(g):
+    import jax.numpy as jnp
+
+    from sipp_tpu import hostref
+    from sipp_tpu.curves import g1_encode, g2_encode
+    from sipp_tpu.ops import pallas_fold as pf
+    from sipp_tpu.utils.testing import random_points
+
+    rng = np.random.default_rng(4242)
+    ks = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(4)]
+    ks[1] &= ~1                      # even: see the module docstring
+    bits = np.stack([scalar_to_bits(k) for k in ks], axis=1)
+    g["exp_bits"] = bits.astype(np.uint32)
+    xa, xb = random_points(4, seed=51)
+    oa, ob = random_points(4, seed=52)
+    xa[1] = xb[1] = None             # x at infinity
+    oa[2] = ob[2] = None             # offset at infinity
+    oa[3] = hostref.g1_mul(xa[3], ks[3])
+    ob[3] = hostref.g2_mul(xb[3], ks[3])
+    for name, curve, ad, coeff, x, off in (
+            ("g1", G1, pf._FqAd, (), g1_encode(xa), g1_encode(oa)),
+            ("g2", G2, pf._Fq2Ad, (2,), g2_encode(xb), g2_encode(ob))):
+        out = _exp_complete(curve, ad, coeff, x, off, jnp.asarray(bits))
+        xla = curve.to_affine(curve.exp_with_offset(x, off, jnp.asarray(bits)))
+        assert np.array_equal(u32(out)[[0, 3]], u32(xla)[[0, 3]])
+        g[f"exp_{name}_x"], g[f"exp_{name}_off"] = u32(x), u32(off)
+        g[f"exp_{name}_out"] = u32(out)
+
+
+def stage_msm_inf(g):
+    import jax.numpy as jnp
+
+    from sipp_tpu.curves import g1_encode, g2_encode
+    from sipp_tpu.ops.msm import _tree_sum
+    from sipp_tpu.ops.pallas_exp import exp_g1_fused, exp_g2_fused
+    from sipp_tpu.protocol.verifier import _finals_msm_dev
+    from sipp_tpu.utils.testing import random_points
+
+    rng = np.random.default_rng(4344)   # c_1 odd, d_2 even
+    xs = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(2)]
+    bits_a = np.empty((254, 4), np.uint32)
+    bits_b = np.empty((254, 4), np.uint32)
+    for j in range(4):                  # as sipp_tpu/protocol/verifier.py:167-174
+        c = d = 1
+        for k, x in enumerate(xs):
+            if (j >> (1 - k)) & 1:
+                c = c * x % params.R
+                d = d * pow(x, -1, params.R) % params.R
+        bits_a[:, j], bits_b[:, j] = scalar_to_bits(c), scalar_to_bits(d)
+    pa, pb = random_points(4, seed=53)
+    pa[1] = pb[2] = None
+    a, b = g1_encode(pa), g2_encode(pb)
+    g.update(msm_inf_a=u32(a), msm_inf_b=u32(b),
+             msm_inf_x=np.stack([bigint.int_to_limbs(x, 16) for x in xs]))
+    for name, curve, k6, pts, bits in (("a", G1, exp_g1_fused, a, bits_a),
+                                       ("b", G2, exp_g2_fused, b, bits_b)):
+        lanes = k6(pts, jnp.zeros_like(pts), jnp.asarray(bits), interpret=True)
+        g[f"msm_inf_lanes_{name}"] = u32(lanes)
+        g[f"msm_inf_fused_{name}"] = u32(
+            curve.to_affine(_tree_sum(curve, curve.jac_from_affine(lanes))[None]))
+    xla_a, xla_b = _finals_msm_dev(a, b, jnp.asarray(bits_a), jnp.asarray(bits_b))
+    g.update(msm_inf_xla_a=u32(xla_a), msm_inf_xla_b=u32(xla_b))
+
+
+def stage_onchip(g):
+    from sipp_tpu.protocol.prover import sipp_prove_onchip
+
+    stage_inputs(g)
+    proof, tr = sipp_prove_onchip(g["a4"], g["b4"], return_transcript=True)
+    g["onchip_proof4"] = u32(proof)
+    g["onchip_state4"] = np.asarray(tr.state, dtype=np.uint64)
+
+
 # Each stage runs in its own process: XLA:CPU runs out of memory maps when
 # one process compiles every program of the list.  (stage, inputs it needs)
-STAGES = [("miller", ()), ("pair", ()), ("fold", ()), ("prove", ()),
-          ("fexp", ("pair", "miller")), ("verify", ("prove",))]
+STAGES = [("onchip", ()), ("miller", ()), ("pair", ()), ("fold", ()), ("prove", ()),
+          ("fexp", ("pair", "miller")), ("verify", ("prove",)), ("transcript", ()),
+          ("exp", ()), ("msm_inf", ())]
 
 
 def run_stage(name, tmp):
