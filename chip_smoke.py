@@ -1,28 +1,41 @@
 """Smoke test of the PyTorch + CUDA port (sipp_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's main paths at n = 128 on the seed-1177 instance, through
-the hand-written CUDA kernels K1 (Miller product, both modes), K2 (final
-exponentiation), K3 (fold ladders), K4/K5 (transcript tail and Z append) and
-K6 (per-lane exp ladders, G1 and G2):
+Drives the port's paths at n = 128 on the seed-1177 instance, through the
+hand-written CUDA kernels K0 (batched Fq multiply), K1 (Miller product, both
+modes), K2 (final exponentiation), K3 (fold ladders), K4/K5 (transcript tail
+and Z append), K6 (per-lane exp ladders, G1 and G2), K7 (one Miller step)
+and K8 (per-lane Fq12 exp):
 
   A. the host-spine sipp_prove -> sipp_verify with fold ladders
      (SIPP_VERIFY_MSM=0);
   B. the on-chip prover sipp_prove_onchip;
   C. sipp_verify with MSM-form finals: its default on the card, the verify
-     of the README quick-start.
+     of the README quick-start;
+  D. the per-step Miller engine (SIPP_WHOLE_LOOP=0): the aggregation,
+     sipp_prove and the fold-form sipp_verify with 65 K7 launches per
+     Miller loop, then the plain tail and product tree, then K2;
+  E. the verifier without the C++ library (SIPP_TPU_NO_NATIVE=1): the
+     pure-Python Poseidon transcript and the device Z' chain (one K8 launch
+     over the proof rows, then the product tree);
+  K0. the field micro-benchmark entry point ops/fq.bench_compare.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: card, SM clock, torch/CUDA versions, build times of the kernels
-     and of the host library (so that no later phase times a build);
+     and of the host library (so that no later phase times a build), and
+     ptxas registers / stack per kernel entry;
   2. each kernel against its plain PyTorch version on the same card inputs,
-     at the main paths' shapes (bit equality: tolerance 0, every value is a
+     at the paths' shapes (bit equality: tolerance 0, every value is a
      canonical field element), with both times and the kernel's bound; K1
      also with infinity lanes, at padded widths (6 lanes) and over two blocks
      (130 lanes); K4/K5 on a state and Fq12 values of the n = 128 run; K6 with
      MSM-finals bits at 128 lanes, and at 100 lanes with infinity x lanes,
      infinity offsets and offsets equal to [k]x; the digest -> challenge
-     step of K4 alone on synthetic digests with zero digits;
+     step of K4 alone on synthetic digests with zero digits; K7 for digits
+     0, 1 and 2 on a carry three digits into the loop, and with infinity
+     lanes; K8 at the verifier's 14 rows of a proof with their challenge
+     bits, and at 100 lanes with all-zero bits, offsets of one and x = 1;
+     K0 at 4096 and 1000 elements;
   3. the n = 128 aggregation Z = FE(prod Miller(A_i, B_i)) must hash to the
      JAX reference's digest, then its steady-state time on distinct inputs;
   4. paths A, B and C, each with the launch counters set to 0 just before it
@@ -37,20 +50,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      device idle share over one prove of each prover (torch.profiler), and
      the n = 4 golden proof and statement of tests/golden/torch_port.npz
      from both provers and both verifiers, byte for byte;
-  5. the kernel table, the card's name and power limit (nvidia-smi), and the
-     last line {"ok": true, "device": {...}}.
+  5. path D, counted the same way: the digest again, its steady time, the
+     proof of path A byte for byte and path A's statement; one Miller loop's
+     65 K7 launches and tail under set_sync_debug_mode("error"); the split
+     of an aggregation into K7 steps, plain tail, plain tree and K2;
+  6. path E, counted: path C's statement, the tampered proof rejected, the
+     n = 4 golden proof and statement; the transcript's and the Z' chain's
+     times against the C++ library's;
+  7. K0's entry point, counted: its timing line and equality;
+  8. the kernel table (one row per kernel entry point, K0-K8), the card's
+     name and power limit (nvidia-smi), and the last line
+     {"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of its bytes (inputs read once, outputs
 written once, over 3.35 TB/s) and its operations as 32-bit multiply
 instructions (a 32 x 32 -> 64-bit word product is two: its low and high
 halves) over the card's rate of 132 SMs x 64 a clock x the maximum SM clock.
-For K1, K2, K3 and K6 the operations are the Fq products that the plain
+For K0-K3 and K6-K8 the operations are the Fq products that the plain
 version computes on the same inputs (counted while it runs; for K6 less the
-additions that this run's bits and infinity lanes skip), 256 multiplies for
-an 8-word Montgomery product.  For K4 and K5 they are the kernel's own
-multiplies per launch (transcript_imuls): the plain version works on 16-bit
-Goldilocks limbs in Montgomery form, the kernel on canonical u64.  No
-PyTorch call computes any of these functions, so library_ms is null.
+additions that this run's bits and infinity lanes skip, for K8 less the
+multiplies its zero bits skip; each Fq12 squaring, which the plain version
+computes as a multiply of 54 products, counted at the kernels' 36), 256
+multiplies for an 8-word Montgomery product.  For K4 and K5 they are the kernel's own multiplies per launch
+(transcript_imuls): the plain version works on 16-bit Goldilocks limbs in
+Montgomery form, the kernel on canonical u64.  No PyTorch call computes any
+of these functions, so library_ms is null.
 
 Usage, from the root of a checkout (the first run builds the kernels with
 nvcc into sipp_tpu_torch/build/):
@@ -61,6 +85,7 @@ nvcc into sipp_tpu_torch/build/):
 import collections
 import contextlib
 import hashlib
+import io
 import json
 import os
 import pathlib
@@ -72,6 +97,7 @@ import time
 import numpy as np
 
 N = 128
+LOGN = 7
 SEED = 1177
 # seed-1177 n=128 aggregation digest of the JAX reference (BENCH_r05.json;
 # sha256 of the (2, 3, 2, 16) C-order uint32 Z, as bench.py hashes it)
@@ -84,6 +110,14 @@ ADD_MIXED_PRODUCTS = 11               # field products of one incomplete mixed a
 GL_PRODUCT_IMULS = 8    # Goldilocks 64 x 64 -> 128 bits: 4 word products; the
 #                         reduction by 2^64 = 2^32 - 1 takes shifts and adds
 MDS_TERM_IMULS = 4      # an MDS entry (< 2^32) times a u64: 2 word products
+FQ12_MUL_PRODUCTS = 54  # Fq products of one Fq12 multiply
+FQ12_SQR_PRODUCTS = 36  # of one complex squaring (bn254.cuh); the plain
+#                         tower.fq12_sqr multiplies, 54
+# the TPU kernel each entry point replaces (PERF.md's kernel table)
+KERNEL_IDS = {"fq_mul": "K0", "miller_product": "K1", "miller_product_pair": "K1",
+              "final_exp": "K2", "fold_g1": "K3", "fold_g2": "K3",
+              "transcript_round_tail": "K4", "transcript_append_fq12": "K5",
+              "exp_g1": "K6", "exp_g2": "K6", "miller_step": "K7", "fq12_exp": "K8"}
 
 
 def emit(obj):
@@ -91,24 +125,60 @@ def emit(obj):
 
 
 @contextlib.contextmanager
+def setenv(name, value):
+    """Set an environment variable for the block, then restore it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def ptxas_entries(log):
+    """{kernel entry: "<registers line>; <stack line>"} from nvcc's
+    -Xptxas -v report."""
+    out, entry, lines = {}, None, log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            out[entry] = ""
+        elif entry and "Function properties for " + entry in line and i + 1 < len(lines):
+            out[entry] += lines[i + 1].strip() + "; "
+        elif entry and "Used" in line and "registers" in line:
+            out[entry] += line.split(":", 1)[1].strip()
+            entry = None
+    return out
+
+
+@contextlib.contextmanager
 def count_products():
-    """Count the field products of the plain versions: Field.mul makes three
-    prod_cols calls of the same batch; the count is keyed by limb count."""
-    from sipp_tpu_torch.fields import fq
+    """Count the field products of the plain versions, keyed by limb count
+    (Field.mul makes three prod_cols calls of the same batch, so a product
+    counts 3), and the Fq12 squarings of tower.fq12_sqr, one per lane, under
+    "fq12_sqr"."""
+    from sipp_tpu_torch.fields import fq, tower
 
     counts = collections.Counter()
-    orig = fq.prod_cols
+    orig, orig_sqr = fq.prod_cols, tower.fq12_sqr
 
     def counting(a, b):
         out = orig(a, b)
         counts[out.shape[-1] // 2] += out[..., 0].numel()
         return out
 
-    fq.prod_cols = counting
+    def counting_sqr(a):
+        counts["fq12_sqr"] += a[..., 0, 0, 0, 0].numel()
+        return orig_sqr(a)
+
+    fq.prod_cols, tower.fq12_sqr = counting, counting_sqr
     try:
         yield counts
     finally:
-        fq.prod_cols = orig
+        fq.prod_cols, tower.fq12_sqr = orig, orig_sqr
 
 
 def transcript_imuls(appends, challenge):
@@ -170,7 +240,7 @@ def main():
     from sipp_tpu_torch import convert, curves, hostref, native, params
     from sipp_tpu_torch.curves import G1, G2, scalar_to_bits
     from sipp_tpu_torch.fields import FGL, tower
-    from sipp_tpu_torch.ops import _build, exp, fexp, fold, miller, msm, transcript
+    from sipp_tpu_torch.ops import _build, exp, fexp, fold, fq, miller, msm, transcript
     from sipp_tpu_torch.pairing import ate
     from sipp_tpu_torch.protocol import (VerificationError, prover, sipp_prove,
                                          sipp_prove_onchip, sipp_verify, verifier)
@@ -193,11 +263,9 @@ def main():
     t0 = time.time()
     native.get_lib()            # the host transcript library, built with g++
     host_build_s = time.time() - t0
-    regs = [line.split(":", 1)[1].strip() for line in _build.BUILD_INFO["log"].splitlines()
-            if "Used" in line and "registers" in line]
     emit({"phase": "device", "card": smi, "sm_max_mhz": sm_mhz, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "host_build_s": host_build_s,
-          "ptxas": regs})
+          "ptxas": ptxas_entries(_build.BUILD_INFO["log"])})
 
     t0 = time.time()
     a, b = random_instance(N, seed=SEED, device=dev)
@@ -222,7 +290,7 @@ def main():
             out = fn()
             torch.cuda.synchronize()
             ms = (time.time() - t) * 1e3
-        return out, ms, {limbs: c // 3 for limbs, c in counts.items()}
+        return out, ms, {k: c // 3 if isinstance(k, int) else c for k, c in counts.items()}
 
     def tensors(obj):
         if isinstance(obj, torch.Tensor):
@@ -307,11 +375,90 @@ def main():
         adds = int((bits.sum(0) * live).sum())
         return ADD_MIXED_PRODUCTS * (254 * x.shape[0] - adds)
 
+    # K7 inputs: the carry after the first three digits (plain steps), on
+    # the instance and on the instance with infinity lanes
+    def step_inputs(p, q, steps=3):
+        f, t, qn = ate.miller_start(p, q)
+        for d in ate.DIGITS[:steps]:
+            f, t = miller.miller_step_plain(d, q, qn, p, f, t)
+        return q, qn, p, f.contiguous(), t
+
+    step_args, step_inf_args = step_inputs(a, b), step_inputs(a_inf, b_inf)
+
+    def k7(digit, args):
+        q, qn, p, f, t = args
+        read = (q, p, f, t) if digit == 1 else (qn, p, f, t) if digit == 2 else (p, f, t)
+        return (lambda: miller.miller_step(digit, *args),
+                lambda: miller.miller_step_plain(digit, *args), read)
+
+    # K8 inputs: the verifier's Z' chain rows of a proof of this instance,
+    # with their challenge bits and offsets of one; and 100 lanes of seeded
+    # Fq12 values with all-zero bits, offsets of one and x = 1
+    def challenges(proof):
+        """(x_k, x_k^-1) of each round, replayed on the host transcript."""
+        tr = prover.prologue(a, b)
+        tr.append_fq12(tower.fq12_decode(proof[-1]))
+        xs = []
+        for k in range(LOGN):
+            tr.append_fq12(tower.fq12_decode(proof[-2 - 2 * k]))
+            tr.append_fq12(tower.fq12_decode(proof[-3 - 2 * k]))
+            x = tr.get_challenge()
+            xs.append((x, pow(x, -1, params.R)))
+        return xs
+
+    def z_rows(xs):
+        """The verifier's (proof row, exponent) pairs, in its order."""
+        return [r for k, (x, x_inv) in enumerate(xs)
+                for r in ((2 * LOGN - 1 - 2 * k, x), (2 * LOGN - 2 - 2 * k, x_inv))]
+
+    def bits_of(exps):
+        return torch.as_tensor(np.stack([scalar_to_bits(e) for e in exps], 1).astype(np.int64),
+                               device=dev)
+
+    proof_k8 = sipp_prove_onchip(a, b)
+    rows_k8 = z_rows(challenges(proof_k8))
+    k8_x = torch.stack([proof_k8[i] for i, _ in rows_k8])
+    k8_one = tower.fq12_one((len(rows_k8),), dev).contiguous()
+    k8_bits = bits_of([e for _, e in rows_k8])
+
+    def fq12_values(k):
+        v = [int.from_bytes(rng.bytes(40), "little") % params.P for _ in range(12 * k)]
+        return tower.fq12_encode([tuple(tuple((v[12 * e + 6 * i + 2 * j], v[12 * e + 6 * i + 2 * j + 1])
+                                              for j in range(3)) for i in range(2))
+                                  for e in range(k)]).to(dev)
+
+    e8_x, e8_off, e8_bits = fq12_values(E), fq12_values(E), edge_bits.clone()
+    bits0, off_one, x_one = [4, 53, 96], [5, 54, 95], [6, 55, 94]
+    e8_bits[:, bits0] = 0
+    e8_off[off_one] = tower.fq12_one((), dev)
+    e8_x[x_one] = tower.fq12_one((), dev)
+
+    def k8(x, off, bits):
+        return (lambda: exp.fq12_exp(x, off, bits), lambda: exp.fq12_exp_plain(x, off, bits),
+                (x, off, bits))
+
+    def k8_skipped(bits):
+        """Fq products of the multiplies by x that the kernel skips: every
+        zero bit of every lane."""
+        return FQ12_MUL_PRODUCTS * int((bits == 0).sum())
+
+    # K0 inputs: the entry point's batch and an odd one
+    fq_a, fq_b = fq.random_batch(4096, SEED, dev)
+    fq_a2, fq_b2 = fq.random_batch(1000, SEED + 1, dev)
+
+    def k0(x, y):
+        return lambda: fq.fq_mul(x, y), lambda: fq.fq_mul_plain(x, y), (x, y)
+
     zeros_a, zeros_b = torch.zeros_like(a), torch.zeros_like(b)
     k6_g1 = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:117")
     k6_g2 = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:128")
     k45 = "sipp_tpu/ops/pallas_transcript.py:"
+    k7_src = ("miller.cu", "sipp_tpu/ops/pallas_miller.py:364")
+    k8_src = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:173")
+    k0_src = ("fq.cu", "sipp_tpu/ops/pallas_fq.py:33")
     cases = [
+        ("fq_mul_n4096", "fq_mul", *k0_src, *k0(fq_a, fq_b)),
+        ("fq_mul_n1000", "fq_mul", *k0_src, *k0(fq_a2, fq_b2)),
         ("miller_product", "miller_product", *k1_src, *k1(a, b)),
         ("miller_product_inf", "miller_product", *k1_src, *k1(a_inf, b_inf)),
         ("miller_product_n6", "miller_product", *k1_src, *k1(a_inf[:6], b_inf[:6])),
@@ -346,10 +493,18 @@ def main():
          *k6(exp.exp_g1, exp.exp_g1_plain, ex1, eo1, edge_bits)),
         ("exp_g2_edge_n100", "exp_g2", *k6_g2,
          *k6(exp.exp_g2, exp.exp_g2_plain, ex2, eo2, edge_bits)),
+        ("miller_step_d0", "miller_step", *k7_src, *k7(0, step_args)),
+        ("miller_step_d1", "miller_step", *k7_src, *k7(1, step_args)),
+        ("miller_step_d2", "miller_step", *k7_src, *k7(2, step_args)),
+        ("miller_step_inf_d1", "miller_step", *k7_src, *k7(1, step_inf_args)),
+        ("miller_step_inf_d2", "miller_step", *k7_src, *k7(2, step_inf_args)),
+        ("fq12_exp_n14", "fq12_exp", *k8_src, *k8(k8_x, k8_one, k8_bits)),
+        ("fq12_exp_edge_n100", "fq12_exp", *k8_src, *k8(e8_x, e8_off, e8_bits)),
     ]
     skipped = {"exp_g1": k6_skipped(a, msm_a), "exp_g2": 3 * k6_skipped(b, msm_b),
                "exp_g1_edge_n100": k6_skipped(ex1, edge_bits),
-               "exp_g2_edge_n100": 3 * k6_skipped(ex2, edge_bits)}
+               "exp_g2_edge_n100": 3 * k6_skipped(ex2, edge_bits),
+               "fq12_exp_n14": k8_skipped(k8_bits), "fq12_exp_edge_n100": k8_skipped(e8_bits)}
     own_imuls = {"transcript_append_fq12": transcript_imuls(1, False),
                  "transcript_round_tail": transcript_imuls(2, True)}
     table = {}
@@ -362,7 +517,9 @@ def main():
         if name in own_imuls:
             imuls = own_imuls[name]
         else:
-            imuls = FQ_PRODUCT_IMULS * (products.get(16, 0) - skipped.get(name, 0))
+            # the kernels square an Fq12 with bn254.cuh's complex squaring
+            sqr_saved = (FQ12_MUL_PRODUCTS - FQ12_SQR_PRODUCTS) * products.get("fq12_sqr", 0)
+            imuls = FQ_PRODUCT_IMULS * (products.get(16, 0) - sqr_saved - skipped.get(name, 0))
         nbytes = 8 * sum(t.numel() for t in tensors(inputs) + tensors(got))
         ops_ms, bytes_ms = imuls / imul_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         table[name] = {"name": name, "route": "cuda", "source": f"sipp_tpu_torch/csrc/{src}",
@@ -396,6 +553,22 @@ def main():
                 for p, o, i in zip(xh, oh, lanes)]
         if dec(out[lanes]) != want:
             raise SystemExit("K6 edge lanes differ from offset + [k]x on the host")
+
+    # K8 edge lanes: all-zero bits and x = 1 give the offset back; two lanes
+    # against hostref's off * x^k
+    e8_out = exp.fq12_exp(e8_x, e8_off, e8_bits)
+    host_lanes = [0, off_one[0]]
+    e8_host = [hostref.fq12_mul(o, hostref.fq12_pow(x, ks[i])) for x, o, i in zip(
+        tower.fq12_decode(e8_x[host_lanes]), tower.fq12_decode(e8_off[host_lanes]), host_lanes)]
+    if not (torch.equal(e8_out[bits0], e8_off[bits0]) and torch.equal(e8_out[x_one], e8_off[x_one])
+            and tower.fq12_decode(e8_out[host_lanes]) == e8_host):
+        raise SystemExit("K8 edge lanes differ from the offset or from off * x^k on the host")
+    # K7 infinity lanes: the tail masks them, so a whole per-step loop over
+    # the instance with infinity lanes equals K1's product
+    if not torch.equal(ate.product_tree(ate.miller_loop_fused(a_inf, b_inf)),
+                       miller.miller_product(a_inf, b_inf)):
+        raise SystemExit("the per-step Miller loop with infinity lanes differs from K1")
+
 
     # the digest -> challenge step of K4 on digests with zero digits
     digests = [[1, 2, 3, 4], [0x123456789ABCDEF0, 2**64 - 2**32, 1, 2**63],
@@ -440,7 +613,10 @@ def main():
                 (transcript.transcript_append_fq12, "launches", "transcript_append_fq12"),
                 (transcript.transcript_round_tail, "launches", "transcript_round_tail"),
                 (exp.exp_g1, "launches", "exp_g1"),
-                (exp.exp_g2, "launches", "exp_g2")]
+                (exp.exp_g2, "launches", "exp_g2"),
+                (miller.miller_step, "launches", "miller_step"),
+                (exp.fq12_exp, "launches", "fq12_exp"),
+                (fq.fq_mul, "launches", "fq_mul")]
 
     def driven(fn):
         """Run fn with every launch counter set to 0 just before; returns
@@ -453,18 +629,6 @@ def main():
         torch.cuda.synchronize()
         return out, time.time() - t, {name: getattr(f, attr) for f, attr, name in counters}
 
-    @contextlib.contextmanager
-    def msm_mode(mode):
-        old = os.environ.get("SIPP_VERIFY_MSM")
-        os.environ["SIPP_VERIFY_MSM"] = mode
-        try:
-            yield
-        finally:
-            if old is None:
-                del os.environ["SIPP_VERIFY_MSM"]
-            else:
-                os.environ["SIPP_VERIFY_MSM"] = old
-
     def rejects(proof):
         try:
             sipp_verify(a, b, proof)
@@ -474,11 +638,11 @@ def main():
 
     (proof_h, tr_h), prove_host_s, launches_a1 = driven(
         lambda: sipp_prove(a, b, return_transcript=True))
-    with msm_mode("0"):
+    with setenv("SIPP_VERIFY_MSM", "0"):
         stmt_fold, verify_fold_s, launches_a2 = driven(lambda: sipp_verify(a, b, proof_h))
     (proof_o, tr_o), prove_onchip_s, launches_b = driven(
         lambda: sipp_prove_onchip(a, b, return_transcript=True))
-    with msm_mode("auto"):
+    with setenv("SIPP_VERIFY_MSM", "auto"):
         stmt_msm, verify_msm_s, launches_c = driven(lambda: sipp_verify(a, b, proof_o))
     launches_a = {k: launches_a1[k] + launches_a2[k] for k in launches_a1}
     paths = {"A": launches_a, "B": launches_b, "C": launches_c}
@@ -490,11 +654,11 @@ def main():
     same_state = tr_o.state == tr_h.state
     bad = proof_o.clone()
     bad[1, 0, 0, 0, 0] = (bad[1, 0, 0, 0, 0] + 1) % 0xFFFF
-    with msm_mode("auto"):
+    with setenv("SIPP_VERIFY_MSM", "auto"):
         rejected_msm = rejects(bad)
-    with msm_mode("0"):
+    with setenv("SIPP_VERIFY_MSM", "0"):
         rejected_fold = rejects(bad)
-    if tuple(proof_h.shape) != (2 * 7 + 1, 2, 3, 2, 16) or not torch.equal(proof_h[-1], z):
+    if tuple(proof_h.shape) != (2 * LOGN + 1, 2, 3, 2, 16) or not torch.equal(proof_h[-1], z):
         raise SystemExit("proof has the wrong shape or does not end with Z")
     if tower.fq12_decode(z) != stmt_fold.Z:
         raise SystemExit("statement Z differs from the aggregation")
@@ -516,17 +680,10 @@ def main():
                      ("prove_onchip_s", lambda: sipp_prove_onchip(a, b))):
         steady[name] = driven(fn)[1]
     for mode, name in (("0", "verify_fold_s"), ("auto", "verify_msm_s")):
-        with msm_mode(mode):
+        with setenv("SIPP_VERIFY_MSM", mode):
             steady[name] = driven(lambda: sipp_verify(a, b, proof_o))[1]
     # the MSM finals split: K6 (both groups) against tree sum + to_affine
-    xs_run = []
-    trr = prover.prologue(a, b)
-    trr.append_fq12(tower.fq12_decode(proof_o[-1]))
-    for k in range(7):
-        trr.append_fq12(tower.fq12_decode(proof_o[-2 - 2 * k]))
-        trr.append_fq12(tower.fq12_decode(proof_o[-3 - 2 * k]))
-        x = trr.get_challenge()
-        xs_run.append((x, pow(x, -1, params.R)))
+    xs_run = challenges(proof_o)
     ba, bb = (torch.as_tensor(v, device=dev) for v in verifier.msm_bits(xs_run, N))
     k6_ms = kernel_ms(lambda: (exp.exp_g1(a, zeros_a, ba), exp.exp_g2(b, zeros_b, bb)), reps=3)
     lanes_a, lanes_b = exp.exp_g1(a, zeros_a, ba), exp.exp_g2(b, zeros_b, bb)
@@ -562,7 +719,7 @@ def main():
         same4 = {k: np.array_equal(convert.to_reference(v), g["proof4"])
                  for k, v in proofs4.items()}
         for mode in ("0", "auto"):
-            with msm_mode(mode):
+            with setenv("SIPP_VERIFY_MSM", mode):
                 stmt4 = sipp_verify(a4, b4, proofs4["onchip"])
             same4[f"statement_msm_{mode}"] = np.array_equal(
                 np.asarray(stmt4.to_vec(), np.uint32), g["stmt4"])
@@ -570,11 +727,130 @@ def main():
     if not all(same4.values()):
         raise SystemExit("the n = 4 golden proof or statement was not reproduced")
 
-    # --------------------------------------------------------- 5. summary
-    for row in table.values():    # launches: the sum over the driven runs of A, B, C
-        counter = row.pop("counter")
+    # ------------------------------ 5. path D: the per-step Miller engine
+    with setenv("SIPP_WHOLE_LOOP", "0"):
+        z_d, _, launches_d0 = driven(lambda: ate.inner_product(a, b))
+        digest_d = hashlib.sha256(convert.to_reference(z_d).tobytes()).hexdigest()[:16]
+        torch.cuda.synchronize()
+        t = time.time()
+        for x, y in insts:
+            zz_d = ate.inner_product(x, y)
+        torch.cuda.synchronize()
+        agg_d_ms = (time.time() - t) / REPS * 1e3
+        proof_d, prove_d_s, launches_d1 = driven(lambda: sipp_prove(a, b))
+        with setenv("SIPP_VERIFY_MSM", "0"):
+            stmt_d, verify_d_s, launches_d2 = driven(lambda: sipp_verify(a, b, proof_d))
+        # one Miller loop's 65 K7 launches and its tail, where a host sync raises
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            f_d = ate.miller_loop_fused(a, b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        loop_d_ok = torch.equal(ate.product_tree(f_d), f_one)
+        # an aggregation split: K7 steps (events), plain tail, plain tree, K2
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        f, t_, qn = ate.miller_start(a, b)
+        torch.cuda.synchronize()
+        start.record()
+        for digit in ate.DIGITS:
+            f, t_ = miller.miller_step(digit, b, qn, a, f, t_)
+        end.record()
+        torch.cuda.synchronize()
+        split = {"k7_steps_ms": start.elapsed_time(end)}
+        for key, fn in (("tail_ms", lambda v: ate.miller_tail(v, t_, a, b)),
+                        ("tree_ms", ate.product_tree),
+                        ("k2_ms", lambda v: fexp.final_exp(v[None])[0])):
+            t = time.time()
+            f = fn(f)
+            torch.cuda.synchronize()
+            split[key] = (time.time() - t) * 1e3
+        split_ok = torch.equal(f, z)
+    launches_d = {k: launches_d0[k] + launches_d1[k] + launches_d2[k] for k in launches_d0}
+    paths["D"] = launches_d
+    needed["D"] = ["miller_step", "miller_product_pair", "final_exp", "fold_g1", "fold_g2"]
+    checks_d = {"digest": digest_d == REF_DIGEST and torch.equal(zz_d, zz),
+                "proof_equals_path_a": torch.equal(proof_d, proof_h),
+                "statement_equals_path_a": stmt_d == stmt_fold,
+                "loop_without_host_sync": loop_d_ok, "split_equals_z": split_ok,
+                "k7_per_loop": launches_d["miller_step"] == 3 * len(ate.DIGITS),
+                "no_whole_loop_k1": launches_d["miller_product"] == 0}
+    emit({"phase": "path_d", "n": N, "digest": digest_d, "ms_per_aggregation": agg_d_ms,
+          "pairings_per_s": N / agg_d_ms * 1e3, "prove_s": prove_d_s, "verify_fold_s": verify_d_s,
+          "aggregation_split": split, "launches": launches_d, "checks": checks_d, "card": smi})
+    if not all(checks_d.values()):
+        raise SystemExit(f"a path D check failed: {checks_d}")
+
+    # ---------------------- 6. path E: the verifier without the C++ library
+    with setenv("SIPP_TPU_NO_NATIVE", "1"):
+        stmt_e, verify_e_s, launches_e = driven(lambda: sipp_verify(a, b, proof_o))
+        rejected_e = rejects(bad)
+        t = time.time()
+        prover.prologue(a, b)
+        prologue_py_s = time.time() - t
+        rows_o = z_rows(xs_run)
+        torch.cuda.synchronize()
+        t = time.time()
+        z_chain = verifier.z_chain_device(proof_o, rows_o)
+        z_chain_host = tower.fq12_decode(z_chain)
+        z_chain_device_ms = (time.time() - t) * 1e3
+        with np.load(GOLDEN) as g:
+            a4 = convert.from_reference(g["a4"], dev)
+            b4 = convert.from_reference(g["b4"], dev)
+            proof4_e = sipp_prove(a4, b4)
+            stmt4_e = sipp_verify(a4, b4, proof4_e)
+            golden_e = {"proof": np.array_equal(convert.to_reference(proof4_e), g["proof4"]),
+                        "statement": np.array_equal(np.asarray(stmt4_e.to_vec(), np.uint32),
+                                                    g["stmt4"])}
+    t = time.time()
+    prover.prologue(a, b)
+    prologue_native_s = time.time() - t
+    proof_u = native.fq12_limbs16_to_u64(proof_o.cpu().numpy())
+    t = time.time()
+    z_u = proof_u[-1]
+    for i, e in rows_o:
+        z_u = native.fq12_mul(z_u, native.fq12_pow(proof_u[i], e))
+    z_chain_native_ms = (time.time() - t) * 1e3
+    paths["E"] = launches_e
+    needed["E"] = ["fq12_exp", "miller_product", "final_exp", "exp_g1", "exp_g2"]
+    checks_e = {"statement_equals_path_c": stmt_e == stmt_msm, "tampered_rejected": rejected_e,
+                "z_chain_equals_native": z_chain_host == native.fq12_u64_to_tower_ints(z_u)
+                and z_chain_host == stmt_e.final_Z, **{f"golden_n4_{k}": v
+                                                       for k, v in golden_e.items()}}
+    emit({"phase": "path_e", "n": N, "verify_s": verify_e_s,
+          "prologue_python_s": prologue_py_s, "prologue_native_s": prologue_native_s,
+          "z_chain_k8_tree_ms": z_chain_device_ms, "z_chain_native_ms": z_chain_native_ms,
+          "launches": launches_e, "checks": checks_e, "card": smi})
+    if not all(checks_e.values()):
+        raise SystemExit(f"a path E check failed: {checks_e}")
+
+    # ------------------------------------ 7. K0: the field micro-benchmark
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench, _, launches_k0 = driven(fq.bench_compare)
+    paths["K0"] = launches_k0
+    needed["K0"] = ["fq_mul"]
+    emit({"phase": "fq_bench", "batch": 4096, "reps": 10, "plain_s": bench["plain"],
+          "kernel_s": bench["kernel"], "equal": bench["equal"],
+          "printed": out.getvalue().splitlines(), "launches": launches_k0["fq_mul"], "card": smi})
+    missing = [(p, k) for p, ks in needed.items() for k in ks if paths[p][k] < 1]
+    if not bench["equal"] or missing:
+        raise SystemExit(f"K0's entry point disagrees, or a kernel of a path never ran: {missing}")
+
+    # --------------------------------------------------------- 8. summary
+    # one row per kernel entry point: the numbers of its first case (the
+    # paths' shape), the largest error over all its cases, and launches
+    # summed over the driven runs of paths A-E and K0's entry point
+    rows = {}
+    for case in table.values():
+        counter = case.pop("counter")
+        row = rows.setdefault(counter, dict(case, name=counter, id=KERNEL_IDS[counter],
+                                            case=case["name"], cases=0))
+        row["cases"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], case["max_abs_err"])
+    for counter, row in rows.items():
         row["launches"] = sum(launches[counter] for launches in paths.values())
-    emit({"kernels": list(table.values())})
+    emit({"kernels": sorted(rows.values(), key=lambda r: r["id"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

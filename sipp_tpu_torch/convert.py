@@ -38,3 +38,17 @@ def to_reference(x) -> np.ndarray:
     if arr.size and (arr.min() < 0 or arr.max() > 0xFFFF):
         raise ValueError("tensor holds values that are not 16-bit limbs")
     return arr.astype(np.uint32)
+
+
+def from_transposed(arr, device=torch.device("cuda")):
+    """A lanes-last uint32 array of the JAX kernels' transposed layout (the
+    step kernel's carry f (2, 3, 2, 16, B) and T (3, 2, 16, B), its P
+    (2, 16, B) and Q (2, 2, 16, B)) -> the port's lanes-first (B, ...) int64
+    tensor on `device`."""
+    return from_reference(np.ascontiguousarray(np.moveaxis(np.asarray(arr), -1, 0)), device)
+
+
+def to_transposed(x) -> np.ndarray:
+    """The port's (B, ...) int64 tensor -> the JAX kernels' lanes-last
+    uint32 layout (..., B); the inverse of from_transposed."""
+    return np.ascontiguousarray(np.moveaxis(to_reference(x), 0, -1))

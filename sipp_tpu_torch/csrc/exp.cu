@@ -1,5 +1,7 @@
 // K6: offset + [k_i] x_i for every lane, each lane with its own scalar,
-// result in affine coordinates; G1 (over Fq) and G2 (over Fq2).
+// result in affine coordinates; G1 (over Fq) and G2 (over Fq2).  K8 (at the
+// end): off_i * x_i^(k_i) in Fq12, the same ladder in the multiplicative
+// group.
 //
 // Replaces sipp_tpu/ops/pallas_exp.py:exp_g1_fused and exp_g2_fused (both via
 // _exp_call): the MSB-first ladder from infinity, 254 x (double, incomplete
@@ -67,4 +69,48 @@ extern "C" int sipp_exp_g1(const void* x, const void* off, const void* bits, voi
 extern "C" int sipp_exp_g2(const void* x, const void* off, const void* bits, void* out, int n,
                            void* stream) {
     return launch_exp<G2Field>(x, off, bits, out, n, stream);
+}
+
+// K8: off_i * x_i^(k_i) per lane in Fq12.
+//
+// Replaces sipp_tpu/ops/pallas_exp.py:fq12_exp_fused (kernel
+// _fq12_exp_kernel), in its order: pw = 1, then for each of the 254
+// MSB-first bits pw <- pw^2 and, where the lane's bit is 1, pw <- pw * x;
+// finally out = off * pw (bit-identical to tower.fq12_exp_with_offset).  The
+// verifier's device Z' chain calls it with off = 1 on the 2 log2(n) proof
+// rows.
+//
+// Design: one thread per lane, FQ12_EXP_BLOCK lanes per block; bits are the
+// (254, B) plane of K6.  A lane whose bit is 0 skips the multiply (the TPU
+// kernel computes it and selects), so a warp diverges per bit; x and the
+// offset stay in registers / local memory.  What bounds it on the H100: the
+// latency of each lane's chain of 254 squarings (36 Fq products each) and
+// ~127 multiplies (54 each), dependent 256-bit multiplies on one thread.
+#define FQ12_EXP_BLOCK 32
+
+__global__ void __launch_bounds__(FQ12_EXP_BLOCK)
+fq12_exp_kernel(const long long* __restrict__ xs, const long long* __restrict__ offs,
+                const long long* __restrict__ bits, long long* __restrict__ out, int n) {
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= n) return;
+    Fq12 x, pw;
+    fq12_load(x, xs + (size_t)lane * 192);
+    fq12_one(pw);
+    for (int i = 0; i < 254; i++) {
+        fq12_sqr(pw, pw);
+        if (bits[(size_t)i * n + lane]) fq12_mul(pw, pw, x);
+    }
+    fq12_load(x, offs + (size_t)lane * 192);
+    fq12_mul(pw, x, pw);
+    fq12_store(out + (size_t)lane * 192, pw);
+}
+
+// x, off, out: (n, 2, 3, 2, 16) int64 limbs; bits: (254, n) int64, MSB first.
+extern "C" int sipp_fq12_exp(const void* x, const void* off, const void* bits, void* out,
+                             int n, void* stream) {
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    fq12_exp_kernel<<<(n + FQ12_EXP_BLOCK - 1) / FQ12_EXP_BLOCK, FQ12_EXP_BLOCK, 0,
+                      (cudaStream_t)stream>>>(
+        (const long long*)x, (const long long*)off, (const long long*)bits, (long long*)out, n);
+    return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// K1: the Miller product  prod_i miller(P_i, Q_i)  over a block of lanes.
+// K1: the Miller product  prod_i miller(P_i, Q_i)  over a block of lanes;
+// K7 (below it): one step of the Miller loop, sharing K1's device functions.
 //
 // Replaces sipp_tpu/ops/pallas_miller.py:miller_product_fused (kernel body
 // _full_kernel): the whole optimal-ate Miller loop over the NAF of 6x+2, the
@@ -164,6 +165,70 @@ miller_product_kernel(const long long* __restrict__ p, const long long* __restri
     const int k = pair ? 2 : 1;
     if (tid < k && tid < blockDim.x)
         fq12_store(out + (size_t)(blockIdx.x * k + tid) * 192, f);
+}
+
+// K7: ONE Miller step for n lanes (replaces sipp_tpu/ops/pallas_miller.py:
+// miller_step, kernel _step_kernel): f <- f^2 * line_dbl(T, P), T <- 2T,
+// then, when the shared NAF digit is not 0, f <- f * line_add(T, +-Q, P),
+// T <- T +- Q (digit 1 adds qp, digit 2 adds qn = -Q).  The steps of K1's
+// loop, one launch per digit: the JAX package's SIPP_WHOLE_LOOP=0 engine.
+//
+// Design: one thread per lane, STEP_BLOCK lanes per block, so 128 lanes
+// fill four SMs; the digit comes by value (a launch needs no host read) and
+// is uniform over the grid.  The carry stays in the port's (n, ...) layout
+// in device memory between launches, canonical.  What bounds it on the
+// H100: the same per-lane latency chain as K1 (38 dependent Fq2 products a
+// step, 66 with the add), plus the carry's 2,304 bytes of int64 limbs read
+// and written per lane, and a launch per digit.
+#define STEP_BLOCK 32
+
+__global__ void __launch_bounds__(STEP_BLOCK)
+miller_step_kernel(int digit, const long long* __restrict__ qp,
+                   const long long* __restrict__ qn, const long long* __restrict__ p,
+                   const long long* __restrict__ f_in, const long long* __restrict__ t_in,
+                   long long* __restrict__ f_out, long long* __restrict__ t_out, int n) {
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= n) return;
+    Fq xp, yp;
+    fq_load(xp, p + 32 * lane);
+    fq_load(yp, p + 32 * lane + 16);
+    Fq12 f;
+    fq12_load(f, f_in + (size_t)lane * 192);
+    Jac2 t;
+    fq2_load(t.X, t_in + (size_t)lane * 96);
+    fq2_load(t.Y, t_in + (size_t)lane * 96 + 32);
+    fq2_load(t.Z, t_in + (size_t)lane * 96 + 64);
+    Line l;
+    fq12_sqr(f, f);
+    dbl_step(t, l, xp, yp);
+    fq12_mul_line(f, l);
+    if (digit != 0) {
+        const long long* q = (digit == 1 ? qp : qn) + 64 * lane;
+        Fq2 qx, qy;
+        fq2_load(qx, q);
+        fq2_load(qy, q + 32);
+        add_step(t, l, qx, qy, xp, yp);
+        fq12_mul_line(f, l);
+    }
+    fq12_store(f_out + (size_t)lane * 192, f);
+    fq2_store(t_out + (size_t)lane * 96, t.X);
+    fq2_store(t_out + (size_t)lane * 96 + 32, t.Y);
+    fq2_store(t_out + (size_t)lane * 96 + 64, t.Z);
+}
+
+// digit in {0, 1, 2}; qp, qn: (n, 2, 2, 16) Q and -Q; p: (n, 2, 16);
+// f_in, f_out: (n, 2, 3, 2, 16); t_in, t_out: (n, 3, 2, 16) Jacobian; all
+// int64 limbs, outputs distinct from inputs.
+extern "C" int sipp_miller_step(int digit, const void* qp, const void* qn, const void* p,
+                                const void* f_in, const void* t_in, void* f_out, void* t_out,
+                                int n, void* stream) {
+    if (n <= 0 || digit < 0 || digit > 2) return (int)cudaErrorInvalidValue;
+    miller_step_kernel<<<(n + STEP_BLOCK - 1) / STEP_BLOCK, STEP_BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+        digit, (const long long*)qp, (const long long*)qn, (const long long*)p,
+        (const long long*)f_in, (const long long*)t_in, (long long*)f_out,
+        (long long*)t_out, n);
+    return (int)cudaGetLastError();
 }
 
 // p: (n, 2, 16), q: (n, 2, 2, 16) int64 limbs; block: lanes per block, a

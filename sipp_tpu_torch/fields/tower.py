@@ -137,8 +137,15 @@ def fq12_decode(x):
                        for j in range(3)) for i in range(2))
 
 
+@functools.lru_cache(maxsize=None)
+def _fq12_one_on(device):
+    return fq12_encode(hostref.FQ12_ONE, device)
+
+
 def fq12_one(batch_shape=(), device="cpu"):
-    one = fq12_encode(hostref.FQ12_ONE, device)
+    """The Fq12 one, expanded to batch_shape (a read-only view of a constant
+    cached per device, so a call makes no host-to-device copy)."""
+    one = _fq12_one_on(torch.device(device))
     return one.expand(*batch_shape, *one.shape)
 
 
@@ -197,6 +204,25 @@ def fq12_mul_line(f, a, b, c):
     lo = torch.stack([v[0] + _xi_lazy(r2), v[1] + r0, v[2] + r1], dim=-3)
     hi = torch.stack([F.subs(t0, v[0], r0), F.subs(t1, v[1], r1), F.subs(t2, v[2], r2)], dim=-3)
     return F.reduce(torch.stack([lo, hi], dim=-4), 12)
+
+
+def fq12_pow_bits(a, bits):
+    """a^e with e as MSB-first bits on a's device: a (k,) tensor (one
+    exponent for every element) or (k, ...batch) (per-lane exponents).
+    Both branches are computed, then selected, as in the JAX package's
+    scan (sipp_tpu/fields/tower.py:fq12_pow_bits), so no step reads a bit
+    back to the host."""
+    acc = fq12_one(a.shape[:-4], a.device)
+    for bit in bits:
+        acc = fq12_sqr(acc)
+        acc = torch.where(bit[..., None, None, None, None] != 0, fq12_mul(acc, a), acc)
+    return acc
+
+
+def fq12_exp_with_offset(x, offset, bits):
+    """offset * x^e per lane (the starky Fq12ExpInput statement); the
+    offset's product comes last, as in the JAX package."""
+    return fq12_mul(offset, fq12_pow_bits(x, bits))
 
 
 def fq12_conj(a):

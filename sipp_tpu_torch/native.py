@@ -7,11 +7,13 @@ g++ into sipp_tpu_torch/build/ (ops/_build.py) and injects the Poseidon
 constants from fields/poseidon.py and the BN254 constants from
 params/hostref, exactly as sipp_tpu/native.py does.  The library is
 required: get_lib() raises if it cannot be built.  The pure-Python Poseidon
-stays as the test oracle.
+is its test oracle, and the transcript's engine when SIPP_TPU_NO_NATIVE is
+set (enabled()).  The numpy codecs at the end need no library.
 """
 
 import ctypes
 import functools
+import os
 import pathlib
 import shutil
 
@@ -31,6 +33,15 @@ def _ptr(arr):
 
 def _limbs64(x, n=4):
     return [(x >> (64 * i)) & 0xFFFFFFFFFFFFFFFF for i in range(n)]
+
+
+def enabled() -> bool:
+    """False when SIPP_TPU_NO_NATIVE is set to a non-empty value, as the JAX
+    package reads it; read on every call.  Then the transcript runs the
+    pure-Python Poseidon and the verifier computes its Z' chain on the
+    device (K8).  An explicit opt-in, not a fallback: with it unset the
+    library is used, and get_lib() raises when it cannot be built."""
+    return not os.environ.get("SIPP_TPU_NO_NATIVE")
 
 
 @functools.lru_cache(maxsize=None)

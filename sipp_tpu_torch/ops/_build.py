@@ -2,8 +2,9 @@
 
 Two libraries, both plain C interfaces loaded with ctypes:
 
-* the CUDA kernels (K1 Miller product, K2 final exponentiation, K3 fold
-  ladders, K4/K5 transcript tail, K6 per-lane exp ladders):
+* the CUDA kernels (K0 batched Fq multiply, K1 Miller product, K2 final
+  exponentiation, K3 fold ladders, K4/K5 transcript tail, K6 per-lane exp
+  ladders, K7 Miller step, K8 per-lane Fq12 exp):
   sipp_tpu_torch/csrc/*.cu with their headers, compiled by nvcc for sm_90a,
   one nvcc process per source, all started together, then linked; with two
   generated headers of constants derived from params/hostref and
@@ -32,7 +33,7 @@ import torch
 PKG = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "build"
 CUDA_SRC = PKG / "csrc"
-CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu", "transcript.cu", "exp.cu")
+CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu", "transcript.cu", "exp.cu", "fq.cu")
 CUDA_HEADERS = ("bn254.cuh", "curve.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -212,6 +213,7 @@ def cuda_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, args in {
         "sipp_miller_product": [vp, vp, vp, ci, ci, ci, vp],
+        "sipp_miller_step": [ci, vp, vp, vp, vp, vp, vp, vp, ci, vp],
         "sipp_final_exp": [vp, vp, ci, vp],
         "sipp_fold_g1": [vp, vp, vp, vp, ci, vp],
         "sipp_fold_g2": [vp, vp, vp, vp, ci, vp],
@@ -220,6 +222,8 @@ def cuda_library():
         "sipp_digest_to_challenge": [vp, vp, ci, vp],
         "sipp_exp_g1": [vp, vp, vp, vp, ci, vp],
         "sipp_exp_g2": [vp, vp, vp, vp, ci, vp],
+        "sipp_fq12_exp": [vp, vp, vp, vp, ci, vp],
+        "sipp_fq_mul": [vp, vp, vp, ci, vp],
     }.items():
         fn = getattr(lib, name)
         fn.argtypes = args

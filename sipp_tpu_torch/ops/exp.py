@@ -1,14 +1,16 @@
-"""K6: offset + [k_i] x_i per lane -> affine (csrc/exp.cu), replacing
-sipp_tpu/ops/pallas_exp.py:exp_g1_fused and exp_g2_fused.
+"""K6: offset + [k_i] x_i per lane -> affine, and K8: off_i * x_i^(k_i)
+per lane in Fq12 (csrc/exp.cu), replacing sipp_tpu/ops/pallas_exp.py:
+exp_g1_fused, exp_g2_fused and fq12_exp_fused.
 
-exp_g1 / exp_g2 launch the kernel for CUDA tensors and run the plain ladder
-for CPU tensors; there is no other route.  Bound on the H100 and design: see
-the note at the top of csrc/exp.cu.
+exp_g1 / exp_g2 / fq12_exp launch their kernels for CUDA tensors and run the
+plain ladders for CPU tensors; there is no other route.  Bound on the H100
+and design: see the notes in csrc/exp.cu.
 """
 
 import torch
 
 from ..curves import G1, G2
+from ..fields import tower
 from . import _build
 
 
@@ -20,8 +22,12 @@ def exp_g2_plain(x, off, bits):
     return G2.to_affine(G2.exp_with_offset(x, off, bits))
 
 
+def fq12_exp_plain(x, off, bits):
+    return tower.fq12_exp_with_offset(x, off, bits)
+
+
 def _exp(wrapper, x, off, bits, plain, tail):
-    """x, off: (B, *tail) affine int64 limbs; bits: (254, B) int64 MSB-first
+    """x, off: (B, *tail) int64 limbs; bits: (254, B) int64 MSB-first
     per-lane bits on the same device.  Counts the launch on `wrapper`."""
     which = wrapper.__name__
     if x.shape != off.shape or tuple(bits.shape) != (254, x.shape[0]):
@@ -55,5 +61,11 @@ def exp_g2(x, off, bits):
     return _exp(exp_g2, x, off, bits, exp_g2_plain, (2, 2, 16))
 
 
+def fq12_exp(x, off, bits):
+    """off_i * x_i^(k_i) for Fq12 (B, 2, 3, 2, 16)."""
+    return _exp(fq12_exp, x, off, bits, fq12_exp_plain, (2, 3, 2, 16))
+
+
 exp_g1.launches = 0
 exp_g2.launches = 0
+fq12_exp.launches = 0

@@ -3,7 +3,8 @@ run through the CUDA kernels (port of pairing/ate.py).
 
 Plain versions (any device; the CPU tests and the kernels' comparisons use
 them):
-- miller_loop: batched over lanes, NAF(6x+2) digits MSB-1 first, G2 in
+- miller_loop: batched over lanes, NAF(6x+2) digits MSB-1 first (one
+  miller_step_plain per digit, then miller_tail), G2 in
   Jacobian coordinates with the denominator-cleared lines of the reference
       dbl:  L = 2YZ^3*yp  - 3X^2Z^2*xp w  + (3X^3 - 2Y^2) vw
       add:  L = Z3*yp     - theta*xp w    + (theta*x2 - Z3*y2) vw,
@@ -15,9 +16,14 @@ them):
   x-power chains and the lambda tape TAPE.
 - product_tree over the leading axis.
 
-Kernel paths: inner_product (K1 miller_product + K2 final_exp) and
-cross_products (one K1 launch in pair mode + one K2 launch at B = 2).
+Kernel paths: inner_product (K1 miller_product + K2 final_exp; with
+SIPP_WHOLE_LOOP=0, miller_loop_fused's 65 K7 step launches + the plain tail
+and product tree + K2) and cross_products (one K1 launch in pair mode + one
+K2 launch at B = 2, whatever SIPP_WHOLE_LOOP says, as in the JAX package).
 """
+
+import functools
+import os
 
 import torch
 
@@ -26,8 +32,9 @@ from ..fields import FQ, tower as T
 
 F = FQ
 
-# NAF digits of 6x+2 from the second most significant down.
-DIGITS = tuple(reversed(params.ATE_NAF[:-1]))
+# NAF digits of 6x+2 from the second most significant down, in the
+# reference's step encoding (ate.py _DIGITS): 0, 1 (add Q), 2 (add -Q).
+DIGITS = tuple({0: 0, 1: 1, -1: 2}[d] for d in reversed(params.ATE_NAF[:-1]))
 
 X_BITS = tuple(int(b) for b in bin(params.X)[2:])
 
@@ -51,6 +58,7 @@ TAPE = (
 )
 
 
+@functools.lru_cache(maxsize=None)
 def _twist_frob_consts(device):
     return (T.fq2_encode(hostref.TWIST_FROB_X, device),
             T.fq2_encode(hostref.TWIST_FROB_Y, device))
@@ -101,6 +109,21 @@ def _add_step(t, q, xp, yp):
     return torch.stack([X3, Y3, Z3], dim=-3), (a, F.neg(b), c)
 
 
+def miller_step_plain(digit: int, qp, qn, p, f, t):
+    """One Miller step (the plain version of K7, ops/miller.miller_step):
+    f <- f^2 * line_dbl(T, P), T <- 2T, then for digit 1 (2)
+    f <- f * line_add(T, Q, P), T <- T + Q (with qn = -Q).  Any leading
+    batch dims; returns (f, t)."""
+    xp, yp = p[..., 0, :], p[..., 1, :]
+    f = T.fq12_sqr(f)
+    t, line = _dbl_step(t, xp, yp)
+    f = T.fq12_mul_line(f, *line)
+    if digit:
+        t, line = _add_step(t, qp if digit == 1 else qn, xp, yp)
+        f = T.fq12_mul_line(f, *line)
+    return f, t
+
+
 def _neg_y(q):
     return torch.stack([q[..., 0, :, :], F.neg(q[..., 1, :, :])], dim=-3)
 
@@ -112,22 +135,17 @@ def twist_frob(q):
                         T.fq2_mul(T.fq2_conj(q[..., 1, :, :]), cy)], dim=-3)
 
 
-def miller_loop(p_aff, q_aff):
-    """Per-lane Miller function f_{6x+2,Q}(P) times the Frobenius lines.
-    p_aff (..., 2, L) G1 affine, q_aff (..., 2, 2, L) G2 twist affine;
-    infinity lanes ((0, 0) encodings) give f = 1."""
-    xp, yp = p_aff[..., 0, :], p_aff[..., 1, :]
-    q_neg = _neg_y(q_aff)
-    one2 = T.fq2_encode((1, 0), q_aff.device)
+def miller_start(p_aff, q_aff):
+    """The loop's carry at its start, f = 1 and T = (Q, 1), and -Q."""
+    one2 = T.fq12_one((), q_aff.device)[0, 0]            # the Fq2 one
     t = torch.cat([q_aff, one2.expand_as(q_aff[..., :1, :, :])], dim=-3)
-    f = T.fq12_one(p_aff.shape[:-2], p_aff.device)
-    for digit in DIGITS:
-        f = T.fq12_sqr(f)
-        t, line = _dbl_step(t, xp, yp)
-        f = T.fq12_mul_line(f, *line)
-        if digit:
-            t, line = _add_step(t, q_aff if digit == 1 else q_neg, xp, yp)
-            f = T.fq12_mul_line(f, *line)
+    return T.fq12_one(p_aff.shape[:-2], p_aff.device), t, _neg_y(q_aff)
+
+
+def miller_tail(f, t, p_aff, q_aff):
+    """After the last step: the Frobenius correction lines (+pi(Q),
+    -pi^2(Q)), and infinity lanes ((0, 0) encodings) masked to f = 1."""
+    xp, yp = p_aff[..., 0, :], p_aff[..., 1, :]
     q1 = twist_frob(q_aff)
     nq2 = _neg_y(twist_frob(q1))
     t, line = _add_step(t, q1, xp, yp)
@@ -137,6 +155,29 @@ def miller_loop(p_aff, q_aff):
     inf = (p_aff == 0).flatten(-2).all(-1) | (q_aff == 0).flatten(-3).all(-1)
     return torch.where(inf[..., None, None, None, None],
                        T.fq12_one(p_aff.shape[:-2], p_aff.device), f)
+
+
+def _miller_loop(p_aff, q_aff, step):
+    f, t, q_neg = miller_start(p_aff, q_aff)
+    for digit in DIGITS:
+        f, t = step(digit, q_aff, q_neg, p_aff, f, t)
+    return miller_tail(f, t, p_aff, q_aff)
+
+
+def miller_loop(p_aff, q_aff):
+    """Per-lane Miller function f_{6x+2,Q}(P) times the Frobenius lines.
+    p_aff (..., 2, L) G1 affine, q_aff (..., 2, 2, L) G2 twist affine;
+    infinity lanes ((0, 0) encodings) give f = 1."""
+    return _miller_loop(p_aff, q_aff, miller_step_plain)
+
+
+def miller_loop_fused(p_aff, q_aff):
+    """miller_loop with one K7 launch per digit (ops/miller.miller_step: 65
+    launches, queued with no host sync), then the plain miller_tail.
+    p_aff (B, 2, L), q_aff (B, 2, 2, L)."""
+    from ..ops import miller
+
+    return _miller_loop(p_aff, q_aff, miller.miller_step)
 
 
 def product_tree(f):
@@ -188,10 +229,16 @@ def final_exp(f):
 
 def inner_product(a_g1, b_g2):
     """Z = prod_i e(A_i, B_i): one Miller-product launch (K1) and one final
-    exponentiation (K2).  (2, 3, 2, L)."""
+    exponentiation (K2).  (2, 3, 2, L).  SIPP_WHOLE_LOOP=0, read at call
+    time as in the JAX package, takes the per-step engine instead: the K7
+    steps of miller_loop_fused, the plain product tree, then K2."""
     from ..ops import fexp, miller
 
-    return fexp.final_exp(miller.miller_product(a_g1, b_g2)[None])[0]
+    if os.environ.get("SIPP_WHOLE_LOOP") == "0":
+        f = product_tree(miller_loop_fused(a_g1, b_g2))
+    else:
+        f = miller.miller_product(a_g1, b_g2)
+    return fexp.final_exp(f[None])[0]
 
 
 def cross_products(a_lo, a_hi, b_lo, b_hi):

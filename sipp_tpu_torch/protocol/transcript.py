@@ -11,14 +11,17 @@ sipp_tpu/protocol/transcript.py, same bytes).
   limbs, reproduced exactly) read as one little-endian integer, mod r.
   get_challenge does not mutate the state.
 
-The chain runs in the repo's C++ library (native.py), which is required;
-fields/poseidon.py is its pure-Python oracle in the tests.
+The chain runs in the repo's C++ library (native.py), which is required,
+unless SIPP_TPU_NO_NATIVE is set when the Transcript is made (once per prove
+or verify call): then it runs fields/poseidon.hash_no_pad, the pure-Python
+Poseidon, as the JAX package does without its library.  Both give the same
+states.
 """
 
 import numpy as np
 
 from .. import hostref, native, params
-from ..fields import bigint
+from ..fields import bigint, poseidon
 
 
 def fq_to_elements(x: int) -> list:
@@ -51,9 +54,21 @@ def challenge_from_digest(digest) -> int:
 class Transcript:
     def __init__(self):
         self.state = [0, 0, 0, 0]
+        self._native = native.enabled()
+
+    def _absorb_flat(self, flat, lens):
+        if self._native:
+            self.state = native.transcript_absorb_flat(self.state, flat, lens)
+            return
+        at = 0
+        for k in lens:
+            msg = [int(v) for v in flat[at:at + k]]
+            self.state = poseidon.hash_no_pad(self.state + msg)
+            at += k
 
     def append(self, msg):
-        self.state = native.transcript_absorb(self.state, [list(msg)])
+        msg = list(msg)
+        self._absorb_flat(msg, [len(msg)])
 
     def append_fq12(self, f):
         self.append(fq12_to_elements(f))
@@ -68,8 +83,9 @@ class Transcript:
             coords += [x, y, x0, x1, y0, y1]
         flat = bigint.ints_to_u32x8_array(coords).reshape(-1)
         lens = np.tile(np.asarray([16, 32], np.uintp), len(a_pts))
-        self.state = native.transcript_absorb_flat(self.state, flat, lens)
+        self._absorb_flat(flat, lens)
 
     def get_challenge(self) -> int:
         """Fr challenge; does not mutate the state."""
-        return challenge_from_digest(native.hash_no_pad(self.state))
+        hash_no_pad = native.hash_no_pad if self._native else poseidon.hash_no_pad
+        return challenge_from_digest(hash_no_pad(list(self.state)))

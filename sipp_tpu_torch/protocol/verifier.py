@@ -17,6 +17,11 @@ SIPP_VERIFY_MSM picks the form as in the JAX package: "auto" (the default)
 takes MSM finals for CUDA tensors and fold ladders for CPU tensors, "1"
 always MSM finals, "0" never.  Finally e(final_A, final_B) == final_Z is
 checked with one K1 + K2 aggregation.
+
+With SIPP_TPU_NO_NATIVE set (native.enabled(), read per call) the verifier
+uses no C++ library, as the JAX verifier without its library: the
+transcript runs the pure-Python Poseidon, and the Z' chain runs on the
+device as one K8 launch over the 2 log2(n) proof rows (z_chain_device).
 """
 
 import os
@@ -74,6 +79,21 @@ def _finals_msm(a_g1, b_g2, xs):
     return finals
 
 
+def z_chain_device(proof, rows):
+    """The final Z' = Z * prod_k Z_L,k^(x_k) * Z_R,k^(x_k^-1) on the proof's
+    device (the per-round chain is a commutative product): one K8 launch
+    with offset one over the proof rows [(row, exponent), ...], then the
+    product tree of [Z, powers]; sipp_tpu/protocol/verifier.py:137-151."""
+    z = proof[-1]
+    if not rows:
+        return z
+    bases = torch.stack([proof[i] for i, _ in rows])
+    bits = np.stack([scalar_to_bits(e) for _, e in rows], axis=1).astype(np.int64)
+    powers = exp.fq12_exp(bases, tower.fq12_one(bases.shape[:1], proof.device),
+                          torch.as_tensor(bits, device=proof.device))
+    return ate.product_tree(torch.cat([z[None], powers]))
+
+
 def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
     """proof: (2 log2(n) + 1, 2, 3, 2, 16) in the prover's reversed order.
     Returns the accepted SIPPStatement or raises VerificationError."""
@@ -83,6 +103,7 @@ def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
     validate.check_instance(a_g1, b_g2)
     validate.check_proof(proof)
 
+    use_native = native.enabled()
     a_host, b_host = curves.g1_decode(a_g1), curves.g2_decode(b_g2)
     tr = Transcript()
     tr.append_points(a_host, b_host)
@@ -93,15 +114,18 @@ def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
     z_u = proof_u[idx]
     tr.append_fq12(proof_ints[idx])
     idx -= 1
-    sched = []
+    sched, exp_rows = [], []
     n0 = n
     while n > 1:
         tr.append_fq12(proof_ints[idx])
         tr.append_fq12(proof_ints[idx - 1])
         x = tr.get_challenge()
         x_inv = pow(x, -1, params.R)
-        t = native.fq12_mul(native.fq12_pow(proof_u[idx], x), z_u)
-        z_u = native.fq12_mul(t, native.fq12_pow(proof_u[idx - 1], x_inv))
+        if use_native:
+            t = native.fq12_mul(native.fq12_pow(proof_u[idx], x), z_u)
+            z_u = native.fq12_mul(t, native.fq12_pow(proof_u[idx - 1], x_inv))
+        else:
+            exp_rows += [(idx, x), (idx - 1, x_inv)]
         idx -= 2
         n //= 2
         sched.append((n, x, x_inv))
@@ -114,7 +138,10 @@ def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
             a = fold.fold_g1(a[:m], a[m:], scalar_to_bits(x))
             b = fold.fold_g2(b[:m], b[m:], scalar_to_bits(x_inv))
 
-    final_z = native.fq12_u64_to_tower_ints(z_u)
+    if use_native:
+        final_z = native.fq12_u64_to_tower_ints(z_u)
+    else:
+        final_z = tower.fq12_decode(z_chain_device(proof, exp_rows))
     stmt = SIPPStatement(A=a_host, B=b_host, Z=proof_ints[-1],
                          final_A=curves.g1_decode(a)[0], final_B=curves.g2_decode(b)[0],
                          final_Z=final_z)

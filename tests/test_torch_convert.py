@@ -24,6 +24,19 @@ def test_round_trip():
     assert back.dtype == np.uint32 and np.array_equal(back, arr)
 
 
+@pytest.mark.parametrize("shape", [(2, 3, 2, 16, 5), (3, 2, 16, 5), (2, 16, 1)])
+def test_transposed_round_trip(shape):
+    """The JAX kernels' lanes-last layout (the step kernel's f, T, P) to the
+    port's lanes-first (B, ...) tensors and back."""
+    rng = np.random.default_rng(1)
+    arr = rng.integers(0, 1 << 16, size=shape).astype(np.uint32)
+    t = convert.from_transposed(arr, device="cpu")
+    assert t.dtype == torch.int64 and tuple(t.shape) == (shape[-1],) + shape[:-1]
+    assert np.array_equal(t[-1].numpy(), arr[..., -1])
+    back = convert.to_transposed(t)
+    assert back.dtype == np.uint32 and np.array_equal(back, arr)
+
+
 def test_rejects_non_limbs():
     with pytest.raises(ValueError):
         convert.from_reference(np.full((2, 16), 1 << 16, np.uint32), device="cpu")

@@ -50,6 +50,16 @@ device format (16 x 16-bit Montgomery limbs):
                    to_affine(_tree_sum(jac_from_affine(lanes)))
   msm_inf_xla_a/b    _finals_msm_dev on the CPU (its XLA branch,
                    scalar_mul_per_lane then _tree_sum)
+  step_p, step_q, step_qn
+                   B = 3 lanes of (a4, b4) with P = O in lane 1 and Q = O in
+                   lane 2, and -Q (standard layout)
+  step_f, step_t   the Miller carry (f, T) after the first three digits of
+                   _DIGITS (the XLA step body of ate.miller_loop), in the
+                   step kernel's transposed layout (2, 3, 2, 16, B) and
+                   (3, 2, 16, B)
+  step_f{d}, step_t{d}
+                   pallas_miller.miller_step(d, ...) on that carry, d = 0, 1,
+                   2, in interpret mode (K7's own Pallas kernel)
 
 Each stage runs in its own process, two at a time.  Usage (about twenty
 minutes on the CPU, most of it the XLA compile of the on-chip stage):
@@ -272,6 +282,45 @@ def stage_msm_inf(g):
     g.update(msm_inf_xla_a=u32(xla_a), msm_inf_xla_b=u32(xla_b))
 
 
+def stage_miller_step(g):
+    import jax.numpy as jnp
+
+    from sipp_tpu.fields import FQ, tower
+    from sipp_tpu.ops import pallas_miller, tmul
+    from sipp_tpu.pairing import ate
+
+    stage_inputs(g)
+    p, q = g["a4"][:3].copy(), g["b4"][:3].copy()
+    p[1] = 0
+    q[2] = 0
+    qn = jnp.asarray(q).at[:, 1].set(FQ.neg(q[:, 1]))
+
+    @jax.jit
+    def prefix(p, q, qn):
+        """f, T after the first three digits (ate.miller_loop's scan body)."""
+        xp, yp = p[:, 0], p[:, 1]
+        f = tower.fq12_ones((3,))
+        t = jnp.concatenate([q, jnp.broadcast_to(tower.fq2_encode((1, 0)), (3, 1, 2, 16))], 1)
+        for digit in ate._DIGITS[:3]:
+            f = tower.fq12_sqr(f)
+            t, line = ate._dbl_step(t, xp, yp)
+            f = tower.fq12_mul_line(f, *line)
+            if digit:
+                t, line = ate._add_step(t, q if digit == 1 else qn, xp, yp)
+                f = tower.fq12_mul_line(f, *line)
+        return f, t
+
+    f, t = prefix(p, q, qn)
+    carry = (jnp.transpose(f, (1, 2, 3, 4, 0)), jnp.transpose(t, (1, 2, 3, 0)))
+    qp_t, qn_t = jnp.transpose(q, (1, 2, 3, 0)), jnp.transpose(qn, (1, 2, 3, 0))
+    p_t = jnp.transpose(p, (1, 2, 0))
+    g.update(step_p=p, step_q=q, step_qn=u32(qn), step_f=u32(carry[0]), step_t=u32(carry[1]))
+    for d in (0, 1, 2):
+        fo, to = pallas_miller.miller_step(d, jnp.asarray(tmul.CONSTS_NP), qp_t, qn_t, p_t,
+                                           carry, True)
+        g[f"step_f{d}"], g[f"step_t{d}"] = u32(fo), u32(to)
+
+
 def stage_onchip(g):
     from sipp_tpu.protocol.prover import sipp_prove_onchip
 
@@ -285,7 +334,7 @@ def stage_onchip(g):
 # one process compiles every program of the list.  (stage, inputs it needs)
 STAGES = [("onchip", ()), ("miller", ()), ("pair", ()), ("fold", ()), ("prove", ()),
           ("fexp", ("pair", "miller")), ("verify", ("prove",)), ("transcript", ()),
-          ("exp", ()), ("msm_inf", ())]
+          ("exp", ()), ("msm_inf", ()), ("miller_step", ())]
 
 
 def run_stage(name, tmp):
