@@ -23,7 +23,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
   1. device: card, SM clock, torch/CUDA versions, build times of the kernels
      and of the host library (so that no later phase times a build), and
-     ptxas registers / stack per kernel entry;
+     ptxas registers / shared memory / stack / spills per kernel entry; then
+     the Fq product latency probe: clock64 cycles per product over 4,096
+     dependent products on one thread, for bn254.cuh's fq_mul and
+     fq_cc.cuh's fq_mul_cc, each result checked on the host (a
+     measurement, not a kernel of the table);
   2. each kernel against its plain PyTorch version on the same card inputs,
      at the paths' shapes (bit equality: tolerance 0, every value is a
      canonical field element), with both times and the kernel's bound; K1
@@ -35,7 +39,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      0, 1 and 2 on a carry three digits into the loop, and with infinity
      lanes; K8 at the verifier's 14 rows of a proof with their challenge
      bits, and at 100 lanes with all-zero bits, offsets of one and x = 1;
-     K0 at 4096 and 1000 elements;
+     K0 at 4096 and 1000 elements; K3 at 128 lanes (dead lanes, a dead lo
+     under a live hi, a dead hi under a live lo) and at the fold rounds'
+     64 and 1 lanes.  K2's and K3's lines carry the time of the same case
+     with the earlier one-thread-per-lane kernels, quoted from PERF.md's
+     kernel table and not measured here, as earlier_ms_quoted_from_perf_md
+     beside ms (the kernels summary line carries measured numbers only);
   3. the n = 128 aggregation Z = FE(prod Miller(A_i, B_i)) must hash to the
      JAX reference's digest, then its steady-state time on distinct inputs;
   4. paths A, B and C, each with the launch counters set to 0 just before it
@@ -113,6 +122,13 @@ MDS_TERM_IMULS = 4      # an MDS entry (< 2^32) times a u64: 2 word products
 FQ12_MUL_PRODUCTS = 54  # Fq products of one Fq12 multiply
 FQ12_SQR_PRODUCTS = 36  # of one complex squaring (bn254.cuh); the plain
 #                         tower.fq12_sqr multiplies, 54
+# K2's and K3's times with one thread per element or lane, before their
+# redesign, quoted from PERF.md's kernel table (NVIDIA H100 80GB HBM3,
+# 700.00 W), not measured by this script: shown in the kernel phase lines
+# only, under a key that says so, never in the kernels summary line
+QUOTED_EARLIER_MS = {"final_exp_b1": 14.14, "final_exp_b2": 14.15, "fold_g1": 3.25,
+                     "fold_g2": 13.09}
+PROBE_ITERS = 4096
 # the TPU kernel each entry point replaces (PERF.md's kernel table)
 KERNEL_IDS = {"fq_mul": "K0", "miller_product": "K1", "miller_product_pair": "K1",
               "final_exp": "K2", "fold_g1": "K3", "fold_g2": "K3",
@@ -199,6 +215,28 @@ def transcript_imuls(appends, challenge):
             + (appends * 12 + fr_chain) * FQ_PRODUCT_IMULS)
 
 
+def probe_products(lib, dev):
+    """Cycles per product of the latency probe's two products (fold.cu
+    fq_mul_probe_kernel), each result checked against the host's power."""
+    import torch
+    from sipp_tpu_torch import params
+    from sipp_tpu_torch.fields import FQ
+
+    x, y = 12345678901234567, 98765432109876543
+    xy = FQ.encode([x, y], dev)
+    want = x * pow(y, PROBE_ITERS, params.P) % params.P
+    out, stream = {}, torch.cuda.current_stream(dev).cuda_stream
+    for which, name in enumerate(("fq_mul", "fq_mul_cc")):
+        res = torch.zeros(17, dtype=torch.int64, device=dev)
+        for _ in range(2):                           # the first call warms up
+            err = lib.sipp_fq_mul_probe(xy.data_ptr(), res.data_ptr(), which, PROBE_ITERS,
+                                        stream)
+        torch.cuda.synchronize()
+        ok = err == 0 and FQ.decode(res[:16]) == want
+        out[name] = {"cycles_per_product": int(res[16]) / PROBE_ITERS, "value_ok": ok}
+    return out
+
+
 def idle_share(fn):
     """Device busy time and idle share over one call of fn (torch.profiler);
     None where the profiler saw no device activity."""
@@ -266,6 +304,13 @@ def main():
     emit({"phase": "device", "card": smi, "sm_max_mhz": sm_mhz, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "host_build_s": host_build_s,
           "ptxas": ptxas_entries(_build.BUILD_INFO["log"])})
+    probe = probe_products(_build.cuda_library(), dev)
+    emit({"phase": "fq_product_probe", "iters": PROBE_ITERS, "modes": probe,
+          "sm_clock_mhz": subprocess.run(
+              ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+              capture_output=True, text=True, check=True).stdout.split()[0], "card": smi})
+    if not all(m["value_ok"] for m in probe.values()):
+        raise SystemExit("the Fq product probe computed a wrong value")
 
     t0 = time.time()
     a, b = random_instance(N, seed=SEED, device=dev)
@@ -328,6 +373,10 @@ def main():
     lo2, hi2 = b.clone(), torch.roll(b, 1, 0)
     for t in (lo1, hi1, lo2, hi2):
         t[dead] = 0
+    for t in (lo1, lo2):
+        t[[5, 70]] = 0             # a dead lo under a live hi: [x] hi
+    for t in (hi1, hi2):
+        t[[6, 71]] = 0             # a dead hi under a live lo: lo
     fold_x = params.R - 12345      # a fixed challenge with its top bit set
     xbits = scalar_to_bits(fold_x)
     xinvbits = scalar_to_bits(pow(fold_x, -1, params.R))
@@ -456,6 +505,15 @@ def main():
     k7_src = ("miller.cu", "sipp_tpu/ops/pallas_miller.py:364")
     k8_src = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:173")
     k0_src = ("fq.cu", "sipp_tpu/ops/pallas_fq.py:33")
+
+    def k3(group, n, bits):
+        lo, hi = (lo1, hi1) if group == "g1" else (lo2, hi2)
+        kern, plain = getattr(fold, f"fold_{group}"), getattr(fold, f"fold_{group}_plain")
+        return (lambda: kern(lo[:n], hi[:n], bits), lambda: plain(lo[:n], hi[:n], bits),
+                (lo[:n], hi[:n]))
+
+    k3_g1 = ("fold.cu", "sipp_tpu/ops/pallas_fold.py:210")
+    k3_g2 = ("fold.cu", "sipp_tpu/ops/pallas_fold.py:221")
     cases = [
         ("fq_mul_n4096", "fq_mul", *k0_src, *k0(fq_a, fq_b)),
         ("fq_mul_n1000", "fq_mul", *k0_src, *k0(fq_a2, fq_b2)),
@@ -474,12 +532,12 @@ def main():
          (f_one,)),
         ("final_exp_b2", "final_exp", "fexp.cu", "sipp_tpu/ops/pallas_fexp.py:327",
          lambda: fexp.final_exp(f_two), lambda: fexp.final_exp_plain(f_two), (f_two,)),
-        ("fold_g1", "fold_g1", "fold.cu", "sipp_tpu/ops/pallas_fold.py:210",
-         lambda: fold.fold_g1(lo1, hi1, xbits), lambda: fold.fold_g1_plain(lo1, hi1, xbits),
-         (lo1, hi1)),
-        ("fold_g2", "fold_g2", "fold.cu", "sipp_tpu/ops/pallas_fold.py:221",
-         lambda: fold.fold_g2(lo2, hi2, xinvbits), lambda: fold.fold_g2_plain(lo2, hi2, xinvbits),
-         (lo2, hi2)),
+        ("fold_g1", "fold_g1", *k3_g1, *k3("g1", N, xbits)),
+        ("fold_g2", "fold_g2", *k3_g2, *k3("g2", N, xinvbits)),
+        ("fold_g1_n64", "fold_g1", *k3_g1, *k3("g1", 64, xbits)),
+        ("fold_g2_n64", "fold_g2", *k3_g2, *k3("g2", 64, xinvbits)),
+        ("fold_g1_n1", "fold_g1", *k3_g1, *k3("g1", 1, xbits)),
+        ("fold_g2_n1", "fold_g2", *k3_g2, *k3("g2", 1, xinvbits)),
         ("transcript_append_fq12", "transcript_append_fq12", "transcript.cu", k45 + "269",
          lambda: transcript.transcript_append_fq12(state0, z128),
          lambda: transcript.transcript_append_fq12_plain(state0, z128), (state0, z128)),
@@ -527,8 +585,10 @@ def main():
                        "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
                        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                        "library_ms": None}
+        earlier = ({"earlier_ms_quoted_from_perf_md": QUOTED_EARLIER_MS[name]}
+                   if name in QUOTED_EARLIER_MS else {})
         emit({"phase": "kernel", "name": name, "shape": [list(t.shape) for t in tensors(got)],
-              "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms,
+              "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms, **earlier,
               "plain_ms": p_ms, "plain_products": products, "imul": imuls,
               "bound_ms": table[name]["bound_ms"]})
         if not ok:

@@ -8,6 +8,11 @@
 // products; every result is fully reduced (< p).  Fq2/Fq6/Fq12 follow the
 // reference tower: u^2 = -1, v^3 = xi = 9 + u, w^2 = v.
 //
+// Two Fq products give the same values: this file's fq_mul (emulated 64-bit
+// carries, __noinline__), used by K0 (fq.cu), K1 and K7 (miller.cu), K4/K5
+// (transcript.cu) and K6/K8 (exp.cu); and fq_cc.cuh's fq_mul_cc (PTX carry
+// chains, inline into its callers), used by K2 (fexp.cu) and K3 (fold.cu).
+//
 // The constants (p, n0' = -p^-1 mod 2^32, Montgomery one, p - 2, the NAF of
 // 6x+2, the Frobenius tables, the lambda tape) come from the generated
 // bn254_params.cuh, which ops/_build.py derives from params/hostref.
@@ -247,9 +252,6 @@ DEV_NOINLINE void fq6_add(Fq6& r, const Fq6& a, const Fq6& b) {
 DEV_NOINLINE void fq6_sub(Fq6& r, const Fq6& a, const Fq6& b) {
     for (int i = 0; i < 3; i++) fq2_sub(r.c[i], a.c[i], b.c[i]);
 }
-DEV_NOINLINE void fq6_neg(Fq6& r, const Fq6& a) {
-    for (int i = 0; i < 3; i++) fq2_neg(r.c[i], a.c[i]);
-}
 
 // Karatsuba/Toom over Fq2 (the reference's six products).
 DEV_NOINLINE void fq6_mul(Fq6& r, const Fq6& a, const Fq6& b) {
@@ -275,20 +277,6 @@ DEV_NOINLINE void fq6_mul_by_v(Fq6& r, const Fq6& a) {
     r.c[2] = a.c[1];
     r.c[1] = a.c[0];
     r.c[0] = t;
-}
-
-DEV_NOINLINE void fq6_inv(Fq6& r, const Fq6& a) {
-    Fq2 A, B, C, t, u;
-    fq2_sqr(A, a.c[0]); fq2_mul(t, a.c[1], a.c[2]); fq2_mul_xi(t, t); fq2_sub(A, A, t);
-    fq2_sqr(B, a.c[2]); fq2_mul_xi(B, B); fq2_mul(t, a.c[0], a.c[1]); fq2_sub(B, B, t);
-    fq2_sqr(C, a.c[1]); fq2_mul(t, a.c[0], a.c[2]); fq2_sub(C, C, t);
-    // t = a0 A + xi (a2 B + a1 C)
-    fq2_mul(t, a.c[2], B); fq2_mul(u, a.c[1], C); fq2_add(t, t, u); fq2_mul_xi(t, t);
-    fq2_mul(u, a.c[0], A); fq2_add(t, t, u);
-    fq2_inv(t, t);
-    fq2_mul(r.c[0], A, t);
-    fq2_mul(r.c[1], B, t);
-    fq2_mul(r.c[2], C, t);
 }
 
 // ------------------------------------------------------------------ Fq12
@@ -327,61 +315,3 @@ DEV_NOINLINE void fq12_sqr(Fq12& r, const Fq12& a) {
     fq6_add(r.c[1], t, t);
 }
 
-DEV_NOINLINE void fq12_conj(Fq12& r, const Fq12& a) {
-    r.c[0] = a.c[0];
-    fq6_neg(r.c[1], a.c[1]);
-}
-
-DEV_NOINLINE void fq12_inv(Fq12& r, const Fq12& a) {
-    Fq6 t0, t1;
-    fq6_mul(t0, a.c[0], a.c[0]);
-    fq6_mul(t1, a.c[1], a.c[1]);
-    fq6_mul_by_v(t1, t1);
-    fq6_sub(t0, t0, t1);
-    fq6_inv(t0, t0);
-    fq6_mul(r.c[0], a.c[0], t0);
-    fq6_mul(t1, a.c[1], t0);
-    fq6_neg(r.c[1], t1);
-}
-
-// a^(p^k), k in {1, 2, 3}: coefficient (w^i v^j) -> sigma^k(a_ij) FROB[k-1][3i+j]
-DEV_NOINLINE void fq12_frob(Fq12& r, const Fq12& a, int k) {
-    for (int i = 0; i < 2; i++)
-        for (int j = 0; j < 3; j++) {
-            Fq2 t = a.c[i].c[j], c;
-            if (k & 1) fq2_conj(t, t);
-            for (int w = 0; w < 8; w++) {
-                c.c0.v[w] = BN_FROB[k - 1][3 * i + j][0][w];
-                c.c1.v[w] = BN_FROB[k - 1][3 * i + j][1][w];
-            }
-            fq2_mul(r.c[i].c[j], t, c);
-        }
-}
-
-// Granger-Scott squaring; valid on the cyclotomic subgroup (every value of
-// the hard part of the final exponentiation).
-DEV_NOINLINE void fq12_cyclo_sqr(Fq12& r, const Fq12& g) {
-    const Fq2 &z0 = g.c[0].c[0], &z4 = g.c[0].c[1], &z3 = g.c[0].c[2];
-    const Fq2 &z2 = g.c[1].c[0], &z1 = g.c[1].c[1], &z5 = g.c[1].c[2];
-    Fq2 a2, b2, ab, t0, t1, u0, u1, s0, s1, x;
-    // (z0, z1), (z2, z3), (z4, z5): t = a^2 + xi b^2, u = 2ab
-    fq2_sqr(a2, z0); fq2_sqr(b2, z1); fq2_mul(ab, z0, z1);
-    fq2_mul_xi(x, b2); fq2_add(t0, a2, x); fq2_dbl(t1, ab);
-    fq2_sqr(a2, z2); fq2_sqr(b2, z3); fq2_mul(ab, z2, z3);
-    fq2_mul_xi(x, b2); fq2_add(u0, a2, x); fq2_dbl(u1, ab);
-    fq2_sqr(a2, z4); fq2_sqr(b2, z5); fq2_mul(ab, z4, z5);
-    fq2_mul_xi(x, b2); fq2_add(s0, a2, x); fq2_dbl(s1, ab);
-    fq2_mul_xi(s1, s1);
-    Fq12 o;
-    // 3t - 2z (minus) or 3t + 2z (plus)
-#define TRI(dst, t, z, plus) { Fq2 r3, d2; fq2_dbl(r3, t); fq2_add(r3, r3, t); \
-        fq2_dbl(d2, z); if (plus) fq2_add(dst, r3, d2); else fq2_sub(dst, r3, d2); }
-    TRI(o.c[0].c[0], t0, z0, false);
-    TRI(o.c[0].c[1], u0, z4, false);
-    TRI(o.c[0].c[2], s0, z3, false);
-    TRI(o.c[1].c[0], s1, z2, true);
-    TRI(o.c[1].c[1], t1, z1, true);
-    TRI(o.c[1].c[2], u1, z5, true);
-#undef TRI
-    r = o;
-}

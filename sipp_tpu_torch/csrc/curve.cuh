@@ -1,4 +1,4 @@
-// Jacobian curve arithmetic for the curve kernels (K3 fold.cu, K6 exp.cu),
+// Jacobian curve arithmetic for the curve kernel K6 (exp.cu),
 // templated on the coordinate field: G1 over Fq, G2 over Fq2.  Short
 // Weierstrass with a = 0; a Jacobian point (X, Y, Z) is at infinity iff
 // Z = 0, an affine point iff it is all-zero (the reference's encoding).

@@ -2,68 +2,273 @@
 //
 // Replaces sipp_tpu/ops/pallas_fexp.py:final_exp_fused: the easy part
 // conj(f) * f^-1 (tower inversion down to one Fermat Fq inversion), times
-// its p^2-Frobenius, then the hard part as three x-power chains
-// (cyclotomic square-and-multiply) and the reference's lambda tape over a
-// 12-slot register file (pairing/ate.py TAPE), finished by frob3.  The
-// final exponentiation is a function, so any correct chain gives the same
-// bits; mirroring the tape is the shortest route.
+// its p^2-Frobenius, then the hard part as three x-power chains and the
+// reference's lambda tape over a 12-slot register file (pairing/ate.py
+// TAPE), finished by frob3.  The final exponentiation is a function, so
+// any correct chain gives the same bits.
 //
-// Design: one thread per element (B is 1 for an aggregation and 2 for a
-// fold round's Z_L/Z_R).  What bounds it on the H100: it is one serial chain
-// of roughly 800 Fq12 multiplies with no parallelism inside the element, so
-// at B = 1 a single thread runs on a single SM: latency of the dependent
-// 256-bit multiplies, not throughput.  The register file (12 x 384 B) sits
-// in local memory.  Splitting each Fq12 multiply over a warp is the first
-// work for a later change.
+// What bounds it on the H100: latency.  B is 1 for an aggregation and 2
+// for a fold round's (Z_L, Z_R), and each element is one serial chain of
+// ~245 Fq12-level operations (3 x 62 cyclotomic squarings, the x-powers'
+// products, the 30 tape rows, the easy part) and one Fq inversion.  The
+// design shortens each link of the chain and runs independent links at
+// once:
+//
+// * one block of FEXP_WARPS warps per element.  An Fq12-level operation
+//   runs on one warp: thread k computes the k-th independent Fq2 product
+//   (18 for a multiply, 9 for a cyclotomic squaring, 6 for a Frobenius
+//   map), then thread q < 6 forms output coefficient q from the products;
+//   the products' inputs and the outputs' linear forms are the tables of
+//   ops/schedule.py (schedule_params.cuh), which the CPU tests evaluate
+//   against fields/tower.py.  An operation costs one Fq2 product (one Fq
+//   product where it is split, below) and one combine pass, where one
+//   thread made 54 (36) Fq products in a row.
+// * each x-power as the TPU kernel's _powx_ref computes it: the 62
+//   squarings stored, then the 28 set-bit powers multiplied as a 5-level
+//   tree (14, 7, 3, 2, 1 products), the products of a level on different
+//   warps: 62 + 6 links instead of 62 + 27.
+// * the easy part's inversion as five table operations (two Fq6
+//   squarings, the Fq6 inversion's cofactors and norm, the two Fq6
+//   products) around one Fq2 inversion on one thread, whose Fermat chain
+//   (~380 dependent Fq products) is the kernel's serial floor.
+// * a thread's products share its one carry flag, so two independent
+//   products on one thread run one after the other, and an Fq2 product on
+//   one thread costs three: an operation of up to 10 products (the squarings,
+//   the inversion's steps) runs each as its three Karatsuba Fq products on
+//   three lanes.
+// * the state (12 registers, the 63 stored powers, each warp's 18
+//   products and their parts, the tables) lives in static shared memory,
+//   ~47 KB: lanes that read different rows of a table in constant memory
+//   would wait for one another.  The Fq product is fq_cc.cuh's carry-chain
+//   product, inline into the Fq2 product and into the split products.
+// The lambda tape stays serial on warp 0, as it is written.
 #include <cuda_runtime.h>
 
-#include "bn254.cuh"
+#include "fq_cc.cuh"
+#include "schedule_params.cuh"
 
-static __device__ __noinline__ void powx(Fq12& r, const Fq12& v) {
-    Fq12 acc;
-    fq12_one(acc);
-    for (int bit = BN_X_NBITS - 1; bit >= 0; bit--) {
-        fq12_cyclo_sqr(acc, acc);
-        if ((BN_X >> bit) & 1) fq12_mul(acc, acc, v);
-    }
-    r = acc;
+#define FEXP_WARPS 8
+#define SPLIT_MAX 10                      // products split over 3 lanes of a warp
+
+// schedule_params.cuh's tables, copied to shared memory at the start: the
+// lanes of an operation read different rows, which constant memory serves
+// one address at a time
+struct Tables {
+    unsigned char nprod[SCHED_N_OPS], nout[SCHED_N_OPS];
+    unsigned char xmask[SCHED_N_OPS][SCHED_N_PROD], ymask[SCHED_N_OPS][SCHED_N_PROD];
+    signed char terms[SCHED_N_OPS][6][SCHED_MAX_TERMS][3];
+};
+
+struct FexpShared {
+    Fq12 regs[12];                        // 0 g, 1..3 g^(x^k), 4..11 tape scratch
+    Fq12 chain[BN_X_NBITS];               // v^(2^j); the easy part's scratch
+    Fq2 prods[FEXP_WARPS][SCHED_N_PROD];  // each warp's Fq2 products
+    Fq parts[FEXP_WARPS][SPLIT_MAX][3];   // their Karatsuba parts, when split
+    Tables tab;
+};
+
+template <class T>
+static __device__ __forceinline__ void copy_table(T& dst, const T& src) {
+    for (int i = threadIdx.x; i < (int)sizeof(T); i += blockDim.x)
+        reinterpret_cast<char*>(&dst)[i] = reinterpret_cast<const char*>(&src)[i];
 }
 
-__global__ void final_exp_kernel(const long long* __restrict__ in,
-                                 long long* __restrict__ out, int n) {
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= n) return;
-    Fq12 f, g, t;
-    fq12_load(f, in + (size_t)e * 192);
-    // easy part: g = conj(f) / f, then g^(p^2) * g
-    fq12_inv(t, f);
-    fq12_conj(g, f);
-    fq12_mul(g, g, t);
-    fq12_frob(t, g, 2);
-    fq12_mul(g, t, g);
+static __device__ __forceinline__ Fq2* coeffs(Fq12& a) { return reinterpret_cast<Fq2*>(&a); }
+
+// r = the sum of the coefficients of a that mask selects
+static __device__ __forceinline__ void fq2_sum(Fq2& r, const Fq2* a, int mask) {
+    bool first = true;
+#pragma unroll
+    for (int q = 0; q < 6; q++) {
+        if (!(mask >> q & 1)) continue;
+        if (first) r = a[q];
+        else fq2_add_cc(r, r, a[q]);
+        first = false;
+    }
+}
+
+// acc +/-= c v for a small non-zero integer c
+static __device__ __forceinline__ void fq2_add_small(Fq2& acc, const Fq2& v, int c) {
+    Fq2 t = v;
+    for (int k = 1; k < (c < 0 ? -c : c); k++) fq2_add_cc(t, t, v);
+    if (c > 0) fq2_add_cc(acc, acc, t);
+    else fq2_sub_cc(acc, acc, t);
+}
+
+// One table operation on one warp (every lane calls it; l = lane):
+// out[q] = form q over the products x_k * y_k and the inputs a.  a, b and
+// out are coefficient arrays in shared memory; out may alias a or b.  Up
+// to SPLIT_MAX products (a cyclotomic squaring's 9) run as their three
+// Karatsuba Fq products on three lanes each, then one lane per product
+// combines its parts.
+static __device__ __noinline__ void lin_op(Fq2* out, const Fq2* a, const Fq2* b, int op,
+                                           Fq2* prods, Fq (*parts)[3], const Tables& tab,
+                                           int l) {
+    const int nprod = tab.nprod[op];
+    if (nprod <= SPLIT_MAX) {
+        const int k = l / 3, part = l % 3;
+        if (k < nprod) {
+            Fq2 x, y;
+            fq2_sum(x, a, tab.xmask[op][k]);
+            fq2_sum(y, b, tab.ymask[op][k]);
+            Fq u = part == 1 ? x.c1 : x.c0, w = part == 1 ? y.c1 : y.c0;
+            if (part == 2) {
+                fq_add_cc(u, u, x.c1);
+                fq_add_cc(w, w, y.c1);
+            }
+            fq_mul_cc(parts[k][part], u, w);
+        }
+        __syncwarp();
+        if (l < nprod) {
+            Fq s;
+            fq_add_cc(s, parts[l][0], parts[l][1]);
+            fq_sub_cc(prods[l].c0, parts[l][0], parts[l][1]);
+            fq_sub_cc(prods[l].c1, parts[l][2], s);
+        }
+    } else if (l < nprod) {
+        Fq2 x, y;
+        fq2_sum(x, a, tab.xmask[op][l]);
+        fq2_sum(y, b, tab.ymask[op][l]);
+        fq2_mul_cc(prods[l], x, y);
+    }
+    __syncwarp();
+    Fq2 o;
+    if (l < tab.nout[op]) {
+        Fq2 p, s;                          // the xi^0 and xi^1 parts
+        fq2_zero(p);
+        fq2_zero(s);
+        for (int t = 0; t < SCHED_MAX_TERMS; t++) {
+            const signed char* term = tab.terms[op][l][t];
+            if (term[1] == 0) break;
+            const Fq2& v = term[0] < SCHED_INPUT ? prods[term[0]] : a[term[0] - SCHED_INPUT];
+            if (term[2]) fq2_add_small(s, v, term[1]);
+            else fq2_add_small(p, v, term[1]);
+        }
+        fq2_mul_xi_cc(s, s);
+        fq2_add_cc(o, p, s);
+    }
+    __syncwarp();
+    if (l < tab.nout[op]) out[l] = o;
+    __syncwarp();
+}
+
+// out = a^(p^k), k in {1, 2, 3}: coefficient q times FROB[k-1][q]
+static __device__ __noinline__ void frob_op(Fq2* out, const Fq2* a, int k, int l) {
+    if (l < 6) {
+        Fq2 t = a[l], c;
+        if (k & 1) fq2_conj_cc(t, t);
+#pragma unroll
+        for (int w = 0; w < 8; w++) {
+            c.c0.v[w] = BN_FROB[k - 1][l][0][w];
+            c.c1.v[w] = BN_FROB[k - 1][l][1][w];
+        }
+        fq2_mul_cc(out[l], t, c);
+    }
+    __syncwarp();
+}
+
+// out = conj(a) (the w half negated); out may alias a
+static __device__ __forceinline__ void conj_op(Fq2* out, const Fq2* a, int l) {
+    if (l < 6) {
+        if (l < 3) out[l] = a[l];
+        else fq2_neg_cc(out[l], a[l]);
+    }
+    __syncwarp();
+}
+
+static __device__ __forceinline__ void copy_op(Fq2* out, const Fq2* a, int l) {
+    if (l < 6) out[l] = a[l];
+    __syncwarp();
+}
+
+// r = v^x (every thread of the block calls it)
+static __device__ void powx(Fq2* r, const Fq2* v, FexpShared& sh, int warp, int l) {
+    Fq2* prods = sh.prods[warp];
+    Fq(*parts)[3] = sh.parts[warp];
+    if (warp == 0) {
+        copy_op(coeffs(sh.chain[0]), v, l);
+        for (int j = 1; j < BN_X_NBITS; j++)
+            lin_op(coeffs(sh.chain[j]), coeffs(sh.chain[j - 1]), coeffs(sh.chain[j - 1]),
+                   OP_CYCLO, prods, parts, sh.tab, l);
+    }
+    __syncthreads();
+    for (int level = 0; level < POWX_LEVELS; level++) {
+        for (int m = warp; m < POWX_N[level]; m += FEXP_WARPS) {
+            Fq2* d = coeffs(sh.chain[POWX_PAIRS[level][m][0]]);
+            lin_op(d, d, coeffs(sh.chain[POWX_PAIRS[level][m][1]]), OP_MUL, prods, parts,
+                   sh.tab, l);
+        }
+        __syncthreads();
+    }
+    if (warp == 0) copy_op(r, coeffs(sh.chain[POWX_OUT]), l);
+    __syncthreads();
+}
+
+__global__ void __launch_bounds__(32 * FEXP_WARPS)
+final_exp_kernel(const long long* __restrict__ in, long long* __restrict__ out) {
+    __shared__ FexpShared sh;
+    const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+    const size_t base = (size_t)blockIdx.x * 192;
+    Fq2* prods = sh.prods[warp];
+    Fq(*parts)[3] = sh.parts[warp];
+    copy_table(sh.tab.nprod, OP_NPROD);
+    copy_table(sh.tab.nout, OP_NOUT);
+    copy_table(sh.tab.xmask, OP_XMASK);
+    copy_table(sh.tab.ymask, OP_YMASK);
+    copy_table(sh.tab.terms, OP_TERMS);
+    __syncthreads();
+#define R(k) coeffs(sh.regs[k])
+#define OP(...) lin_op(__VA_ARGS__, prods, parts, sh.tab, l)
+    if (warp == 0) {
+        // easy part: g = conj(f) / f, then g^(p^2) * g; scratch in the chain
+        Fq2* f = coeffs(sh.chain[0]);
+        Fq2* t0 = coeffs(sh.chain[1]);          // f0^2 - v f1^2, then its cofactors
+        Fq2* abc = t0 + 3;
+        Fq2* nrm = t0 + 6;                      // the Fq2 norm and its inverse
+        Fq2* t0inv = t0 + 8;
+        Fq2* finv = coeffs(sh.chain[3]);
+        Fq2* t = coeffs(sh.chain[4]);
+        if (l < 6) fq2_load(f[l], in + base + 32 * l);
+        __syncwarp();
+        OP(t0, f, f, OP_INV_SQ);
+        OP(abc, t0, t0, OP_INV6_ABC);
+        OP(nrm, t0, abc, OP_INV6_NORM);
+        if (l == 0) fq2_inv_cc(nrm[1], nrm[0]);
+        __syncwarp();
+        OP(t0inv, abc, nrm + 1, OP_INV6_OUT);
+        OP(finv, f, t0inv, OP_INV_OUT);
+        conj_op(t, f, l);
+        OP(R(0), t, finv, OP_MUL);
+        frob_op(t, R(0), 2, l);
+        OP(R(0), t, R(0), OP_MUL);
+    }
+    __syncthreads();
     // hard part: registers 0..3 = g, g^x, g^(x^2), g^(x^3); 4..11 scratch
-    Fq12 regs[12];
-    regs[0] = g;
-    for (int k = 0; k < 3; k++) powx(regs[k + 1], regs[k]);
-    for (int i = 0; i < BN_TAPE_LEN; i++) {
-        const int dst = BN_TAPE[i][0], s1 = BN_TAPE[i][1], s2 = BN_TAPE[i][2];
-        const int post = BN_TAPE[i][3];
-        fq12_mul(t, regs[s1], regs[s2]);
-        if (post == 1) fq12_conj(t, t);
-        else if (post == 2) fq12_frob(t, t, 1);
-        else if (post == 3) fq12_frob(t, t, 2);
-        regs[dst] = t;
+    for (int k = 0; k < 3; k++) powx(R(k + 1), R(k), sh, warp, l);
+    if (warp == 0) {
+        for (int i = 0; i < BN_TAPE_LEN; i++) {
+            const int dst = BN_TAPE[i][0], post = BN_TAPE[i][3];
+            OP(R(dst), R(BN_TAPE[i][1]), R(BN_TAPE[i][2]), OP_MUL);
+            if (post == 1) conj_op(R(dst), R(dst), l);
+            else if (post >= 2) frob_op(R(dst), R(dst), post - 1, l);
+        }
+        Fq2* t = coeffs(sh.chain[0]);
+        frob_op(t, R(0), 3, l);
+        OP(t, R(5), t, OP_MUL);
+        if (l < 6) fq2_store(out + base + 32 * l, t[l]);
     }
-    fq12_frob(t, g, 3);
-    fq12_mul(t, regs[5], t);
-    fq12_store(out + (size_t)e * 192, t);
+#undef OP
+#undef R
 }
 
+// The launcher (nvcc only: a CPU test compiles the device code above with
+// g++ on an emulated carry flag and host threads).
+#ifdef __CUDACC__
 // in, out: (n, 2, 3, 2, 16) int64 limbs.
 extern "C" int sipp_final_exp(const void* in, void* out, int n, void* stream) {
     if (n <= 0) return (int)cudaErrorInvalidValue;
-    const int block = n < 32 ? n : 32;
-    final_exp_kernel<<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
-        (const long long*)in, (long long*)out, n);
+    final_exp_kernel<<<n, 32 * FEXP_WARPS, 0, (cudaStream_t)stream>>>(
+        (const long long*)in, (long long*)out);
     return (int)cudaGetLastError();
 }
+#endif  // __CUDACC__

@@ -6,10 +6,11 @@ Two libraries, both plain C interfaces loaded with ctypes:
   exponentiation, K3 fold ladders, K4/K5 transcript tail, K6 per-lane exp
   ladders, K7 Miller step, K8 per-lane Fq12 exp):
   sipp_tpu_torch/csrc/*.cu with their headers, compiled by nvcc for sm_90a,
-  one nvcc process per source, all started together, then linked; with two
-  generated headers of constants derived from params/hostref and
-  fields/poseidon (so no constant is typed by hand in the CUDA sources, and a
-  SIPP_POSEIDON_RC_FILE table builds its own library);
+  one nvcc process per source, all started together, then linked; with
+  three generated headers of constants derived from params/hostref,
+  fields/poseidon and ops/schedule (so no constant or schedule table is
+  typed by hand in the CUDA sources, and a SIPP_POSEIDON_RC_FILE table
+  builds its own library);
 * the host library of the repo's csrc/ (Poseidon transcript chain, Fq12
   pow/mul), compiled by g++ (see native.py).
 
@@ -34,7 +35,7 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "build"
 CUDA_SRC = PKG / "csrc"
 CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu", "transcript.cu", "exp.cu", "fq.cu")
-CUDA_HEADERS = ("bn254.cuh", "curve.cuh")
+CUDA_HEADERS = ("bn254.cuh", "curve.cuh", "fq_cc.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -155,6 +156,42 @@ def transcript_header() -> str:
     return text
 
 
+def schedule_header() -> str:
+    """The redesigned K2's and K3's schedules (ops/schedule.py): per
+    operation, the Fq2 products' input masks and each output's linear form
+    (source, coefficient, power of xi; padded with coefficient 0), and the
+    x-power's product tree over the stored squarings."""
+    from . import schedule as S
+
+    ops = S.OPS
+    pad = (0, 0, 0)
+    lines = ["// Generated by sipp_tpu_torch/ops/_build.py from ops/schedule.py.",
+             "#pragma once", f"#define SCHED_N_PROD {S.N_PROD}",
+             f"#define SCHED_INPUT {S.INPUT}", f"#define SCHED_MAX_TERMS {S.MAX_TERMS}",
+             f"#define SCHED_N_OPS {len(ops)}",
+             f"#define POWX_LEVELS {len(S.POWX_TREE)}", f"#define POWX_OUT {S.POWX_OUT}"]
+    lines += [f"#define OP_{op.name.upper()} {i}" for i, op in enumerate(ops)]
+    text = "\n".join(lines) + "\n"
+    text += _arr("OP_NPROD", "unsigned char", f"[{len(ops)}]", [len(op.xmask) for op in ops])
+    text += _arr("OP_NOUT", "unsigned char", f"[{len(ops)}]", [len(op.terms) for op in ops])
+    for name in ("xmask", "ymask"):
+        text += _arr(f"OP_{name.upper()}", "unsigned char", f"[{len(ops)}][{S.N_PROD}]",
+                     [m for op in ops for m in list(getattr(op, name))
+                      + [0] * (S.N_PROD - len(op.xmask))])
+    text += _arr("OP_TERMS", "signed char", f"[{len(ops)}][6][{S.MAX_TERMS}][3]",
+                 [v for op in ops for q in range(6)
+                  for t in (list(op.terms[q]) if q < len(op.terms) else [])
+                  + [pad] * (S.MAX_TERMS - (len(op.terms[q]) if q < len(op.terms) else 0))
+                  for v in t])
+    width = max(len(level) for level in S.POWX_TREE)
+    text += _arr("POWX_N", "unsigned char", f"[{len(S.POWX_TREE)}]",
+                 [len(level) for level in S.POWX_TREE])
+    text += _arr("POWX_PAIRS", "unsigned char", f"[{len(S.POWX_TREE)}][{width}][2]",
+                 [v for level in S.POWX_TREE
+                  for pair in list(level) + [(0, 0)] * (width - len(level)) for v in pair])
+    return text
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
@@ -195,7 +232,8 @@ def _build_cuda(cmd: list, inc: pathlib.Path, key: str) -> tuple:
 def cuda_library():
     """Build (or find) and load the kernels' shared library."""
     headers = {"bn254_params.cuh": params_header(),
-               "transcript_params.cuh": transcript_header()}
+               "transcript_params.cuh": transcript_header(),
+               "schedule_params.cuh": schedule_header()}
     inc = BUILD_DIR / f"include_{_digest(headers.values())}"
     for name, text in headers.items():
         if not (inc / name).exists():
@@ -224,6 +262,7 @@ def cuda_library():
         "sipp_exp_g2": [vp, vp, vp, vp, ci, vp],
         "sipp_fq12_exp": [vp, vp, vp, vp, ci, vp],
         "sipp_fq_mul": [vp, vp, vp, ci, vp],
+        "sipp_fq_mul_probe": [vp, vp, ci, ci, vp],
     }.items():
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -1,0 +1,50 @@
+// Host emulation of the CUDA built-ins that the K2/K3 device code uses, so
+// that g++ compiles sipp_tpu_torch/csrc/{fold,fexp}.cu's kernels for the CPU:
+// a block runs as host threads, __syncwarp / __syncthreads are barriers of
+// the warp's / block's threads, __shared__ variables are statics, and
+// fq_cc.cuh's carry flag is emulated (its #else branch).
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <ctime>
+#include <functional>
+#include <thread>
+#include <vector>
+
+struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+static thread_local Dim3 threadIdx, blockIdx, blockDim;
+static std::barrier<>* g_warp_barrier[32];
+static std::barrier<>* g_block_barrier;
+
+inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_barrier[threadIdx.x / 32]->arrive_and_wait(); }
+inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
+inline long long clock64() { return (long long)clock(); }
+
+#define __device__
+#define __constant__
+#define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define __global__
+#define __shared__ static
+#define __launch_bounds__(x)
+#define __restrict__
+
+// Run body as block `block` of `nthreads` threads (one block at a time: the
+// __shared__ statics are the block's shared memory).
+static void run_block(int block, int nthreads, const std::function<void()>& body) {
+    const int warps = (nthreads + 31) / 32;
+    for (int w = 0; w < warps; w++)
+        g_warp_barrier[w] = new std::barrier<>(std::min(32, nthreads - 32 * w));
+    g_block_barrier = new std::barrier<>(nthreads);
+    std::vector<std::thread> threads;
+    for (int t = 0; t < nthreads; t++)
+        threads.emplace_back([=, &body] {
+            threadIdx.x = t;
+            blockIdx.x = block;
+            blockDim.x = nthreads;
+            body();
+        });
+    for (auto& t : threads) t.join();
+    for (int w = 0; w < warps; w++) delete g_warp_barrier[w];
+    delete g_block_barrier;
+}

@@ -1,0 +1,212 @@
+"""The schedules of the redesigned K2 and K3 kernels on the CPU, tolerance 0.
+
+ops/schedule.py holds them as data: K2's tables (the Fq2 products of each
+Fq12-level operation and each output's linear form, written into the
+kernels' generated schedule_params.cuh by ops/_build.py) and the x-power's
+product tree; K3's staged doubling and mixed addition.  Here the tables
+are evaluated in plain PyTorch against fields/tower.py, hostref and the
+JAX package's own schedule, and the stages against curves' dbl and
+add_mixed, on seeded values.
+
+The last tests compile the kernels' device code itself (csrc/fq_cc.cuh,
+fold.cu, fexp.cu) with g++ on an emulated carry flag, run each block as
+host threads (tests/host_emulation/sim.h), and hold the results against
+the plain versions.  They need g++ with C++20 and skip without it.
+"""
+
+import pathlib
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from sipp_tpu_torch import hostref, params
+from sipp_tpu_torch.curves import G1, G2, scalar_to_bits
+from sipp_tpu_torch.fields import FQ, tower
+from sipp_tpu_torch.ops import _build, fexp, fold, schedule
+from sipp_tpu_torch.pairing import ate
+from sipp_tpu_torch.utils.testing import random_instance
+
+HOST = pathlib.Path(__file__).parent / "host_emulation"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def fq12_values(k, seed):
+    rng = np.random.default_rng(seed)
+    v = [int.from_bytes(rng.bytes(40), "little") % params.P for _ in range(12 * k)]
+    return tower.fq12_encode([tuple(tuple((v[12 * e + 6 * i + 2 * j], v[12 * e + 6 * i + 2 * j + 1])
+                                          for j in range(3)) for i in range(2))
+                              for e in range(k)])
+
+
+@pytest.fixture(scope="module")
+def cyclotomic():
+    """Seeded elements of the cyclotomic subgroup (after the easy part)."""
+    return ate.easy_part(fq12_values(2, 4))
+
+
+def test_fq12_mul_table_matches_tower():
+    a, b = fq12_values(3, 1), fq12_values(3, 2)
+    assert torch.equal(schedule.fq12_mul(a, b), tower.fq12_mul(a, b))
+
+
+def test_cyclo_table_matches_tower(cyclotomic):
+    g = cyclotomic
+    got = schedule.fq12_cyclo_sqr(g)
+    assert torch.equal(got, tower.fq12_cyclo_sqr(g))
+    assert torch.equal(got, tower.fq12_mul(g, g))
+
+
+def test_inverse_tables_match_tower():
+    f = fq12_values(2, 3)
+    inv = schedule.fq12_inv(f)
+    assert torch.equal(inv, tower.fq12_inv(f))
+    assert torch.equal(tower.fq12_mul(f, inv), tower.fq12_one((2,)).contiguous())
+
+
+def test_powx_tree_matches_square_and_multiply_and_hostref(cyclotomic):
+    g = cyclotomic[:1]
+    got = schedule.powx(g)
+    assert torch.equal(got, ate._powx(g))
+    assert tower.fq12_decode(got[0]) == hostref.fq12_pow(tower.fq12_decode(g[0]), params.X)
+
+
+def test_powx_tree_is_the_tpu_kernels_schedule():
+    from sipp_tpu.ops import pallas_fexp
+
+    assert list(schedule.X_SET) == list(pallas_fexp._X_SET_POWS)
+    assert [len(level) for level in schedule.POWX_TREE] == [14, 7, 3, 2, 1]
+    used = [j for level in schedule.POWX_TREE for pair in level for j in pair]
+    assert sorted(set(used)) == sorted(schedule.X_SET)
+
+
+def test_generated_header_holds_the_tables():
+    """The kernel reads what the tests evaluate: schedule_params.cuh's
+    arrays are the tables of ops/schedule.py."""
+    text = _build.schedule_header()
+
+    def array(name):
+        body = re.search(rf"{name}\[[^=]*= \{{([^}}]*)\}}", text).group(1)
+        return [int(v) for v in body.split(",")]
+
+    ops = schedule.OPS
+    assert array("OP_NPROD") == [len(op.xmask) for op in ops]
+    assert array("OP_NOUT") == [len(op.terms) for op in ops]
+    xmask = np.array(array("OP_XMASK")).reshape(len(ops), schedule.N_PROD)
+    terms = np.array(array("OP_TERMS")).reshape(len(ops), 6, schedule.MAX_TERMS, 3)
+    for i, op in enumerate(ops):
+        assert list(xmask[i, :len(op.xmask)]) == list(op.xmask)
+        for q, form in enumerate(op.terms):
+            assert [tuple(t) for t in terms[i, q] if t[1]] == list(form)
+    pairs = np.array(array("POWX_PAIRS")).reshape(len(schedule.POWX_TREE), -1, 2)
+    for level, want in zip(pairs, schedule.POWX_TREE):
+        assert [tuple(p) for p in level[:len(want)]] == list(want)
+
+
+@pytest.fixture(scope="module")
+def points():
+    """Lanes of G1 and G2 points with a lane at infinity (all-zero)."""
+    a, b = random_instance(4, seed=3, device="cpu")
+    a[2], b[2] = 0, 0
+    return {"g1": (G1, a), "g2": (G2, b)}
+
+
+def jacobian_lanes(C, pts):
+    """Generic Jacobian points (Z != 1), one at infinity (Z = 0)."""
+    p = C.dbl(C.add_mixed(C.dbl(C.jac_from_affine(torch.roll(pts, 1, 0))), pts))
+    p[3] = 0
+    return p
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_staged_dbl_matches_curves(points, group):
+    C, pts = points[group]
+    p = jacobian_lanes(C, pts)
+    assert torch.equal(schedule.dbl_staged(C, p), C.dbl(p))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_staged_add_mixed_matches_curves(points, group):
+    """With the accumulator at infinity (lane 3) and q at infinity (lane 2)."""
+    C, pts = points[group]
+    p = jacobian_lanes(C, pts)
+    for q in (pts, torch.roll(pts, 2, 0)):
+        assert torch.equal(schedule.add_mixed_staged(C, p, q), C.add_mixed(p, q))
+
+
+# ------------------------------------------ the device code, emulated on the CPU
+
+@pytest.fixture(scope="module")
+def sim(tmp_path_factory):
+    """The emulation binary: g++ on tests/host_emulation/sim_main.cpp with
+    the generated constant headers."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to compile the device code for the CPU")
+    d = tmp_path_factory.mktemp("host_emulation")
+    (d / "bn254_params.cuh").write_text(_build.params_header())
+    (d / "schedule_params.cuh").write_text(_build.schedule_header())
+    exe = d / "sim"
+    proc = subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", f"-I{HOST}", f"-I{d}",
+                           f"-I{_build.CUDA_SRC}", str(HOST / "sim_main.cpp"), "-o", str(exe)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0 and "barrier" in proc.stderr:
+        pytest.skip("g++ without C++20 <barrier>")
+    assert proc.returncode == 0, proc.stderr
+    return d, exe
+
+
+def run_sim(sim, mode, n, arrays):
+    d, exe = sim
+    np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in arrays]).tofile(d / "in.bin")
+    subprocess.run([str(exe), mode, str(n), str(d / "in.bin"), str(d / "out.bin")], check=True)
+    return torch.from_numpy(np.fromfile(d / "out.bin", dtype=np.int64))
+
+
+def test_fq_cc_matches_the_plain_field(sim):
+    """fq_cc.cuh's product, add, sub and inverse on the emulated carry
+    flag, edge values (0, 1, p - 1, the Montgomery one) included."""
+    rng = np.random.default_rng(9)
+    edge = [0, 1, 2, params.P - 1, params.P - 2, (1 << 256) % params.P]
+    vals = edge + [int.from_bytes(rng.bytes(40), "little") % params.P for _ in range(40)]
+    pairs = [(x, y) for x in edge for y in edge] + list(zip(vals, vals[::-1]))
+    a = FQ.encode([x for x, _ in pairs])
+    b = FQ.encode([y for _, y in pairs])
+    got = run_sim(sim, "fq", len(pairs), [torch.stack([a, b], 1)]).reshape(-1, 4, 16)
+    assert torch.equal(got[:, 0], FQ.mul(a, b))
+    assert torch.equal(got[:, 1], FQ.add(a, b))
+    assert torch.equal(got[:, 2], FQ.sub(a, b))
+    assert torch.equal(got[:, 3], FQ.inv(a))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_fold_kernel_emulated_matches_plain(sim, group):
+    """K3's device code at 10 lanes (two blocks): a dead lo, a dead hi and a
+    dead lane; then all-zero bits."""
+    a, b = random_instance(10, seed=11, device="cpu")
+    pts = a if group == "g1" else b
+    lo, hi = pts.clone(), torch.roll(pts, 1, 0)
+    lo[2], hi[3], lo[4], hi[4] = 0, 0, 0, 0
+    plain = getattr(fold, f"fold_{group}_plain")
+    for bits in (scalar_to_bits(params.R - 12345), [0] * 254):
+        got = run_sim(sim, f"fold_{group}", 10, [lo, hi, bits]).reshape(lo.shape)
+        assert torch.equal(got, plain(lo, hi, bits))
+    assert bool((got[4] == 0).all())
+
+
+def test_final_exp_kernel_emulated_matches_plain(sim):
+    """K2's device code at B = 2 (two blocks of eight warps)."""
+    a, b = random_instance(2, seed=5, device="cpu")
+    f = ate.miller_loop(a, b)
+    got = run_sim(sim, "fexp", 2, [f]).reshape(f.shape)
+    assert torch.equal(got, fexp.final_exp_plain(f))
