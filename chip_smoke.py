@@ -25,14 +25,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      and of the host library (so that no later phase times a build), and
      ptxas registers / shared memory / stack / spills per kernel entry; then
      the Fq product latency probe: clock64 cycles per product over 4,096
-     dependent products on one thread, for bn254.cuh's fq_mul and
-     fq_cc.cuh's fq_mul_cc, each result checked on the host (a
+     dependent products on one thread of bn254.cuh's fq_mul (the one Fq
+     product of every kernel), the result checked on the host (a
      measurement, not a kernel of the table);
   2. each kernel against its plain PyTorch version on the same card inputs,
      at the paths' shapes (bit equality: tolerance 0, every value is a
      canonical field element), with both times and the kernel's bound; K1
-     also with infinity lanes, at padded widths (6 lanes) and over two blocks
-     (130 lanes); K4/K5 on a state and Fq12 values of the n = 128 run; K6 with
+     also with infinity lanes, at padded widths (6 lanes), over 33 blocks
+     (130 lanes), and in pair mode at the fold rounds' 128, 64 and 2 lanes;
+     K4/K5 on a state and Fq12 values of the n = 128 run; K6 with
      MSM-finals bits at 128 lanes, and at 100 lanes with infinity x lanes,
      infinity offsets and offsets equal to [k]x; the digest -> challenge
      step of K4 alone on synthetic digests with zero digits; K7 for digits
@@ -41,10 +42,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      bits, and at 100 lanes with all-zero bits, offsets of one and x = 1;
      K0 at 4096 and 1000 elements; K3 at 128 lanes (dead lanes, a dead lo
      under a live hi, a dead hi under a live lo) and at the fold rounds'
-     64 and 1 lanes.  K2's and K3's lines carry the time of the same case
-     with the earlier one-thread-per-lane kernels, quoted from PERF.md's
-     kernel table and not measured here, as earlier_ms_quoted_from_perf_md
-     beside ms (the kernels summary line carries measured numbers only);
+     64 and 1 lanes.  K1's, K2's, K3's and K6's lines carry the time of the
+     same case with the earlier one-thread-per-lane kernels, quoted from
+     PERF.md's kernel table and not measured here, as
+     earlier_ms_quoted_from_perf_md beside ms (the kernels summary line
+     carries measured numbers only);
   3. the n = 128 aggregation Z = FE(prod Miller(A_i, B_i)) must hash to the
      JAX reference's digest, then its steady-state time on distinct inputs;
   4. paths A, B and C, each with the launch counters set to 0 just before it
@@ -122,12 +124,14 @@ MDS_TERM_IMULS = 4      # an MDS entry (< 2^32) times a u64: 2 word products
 FQ12_MUL_PRODUCTS = 54  # Fq products of one Fq12 multiply
 FQ12_SQR_PRODUCTS = 36  # of one complex squaring (bn254.cuh); the plain
 #                         tower.fq12_sqr multiplies, 54
-# K2's and K3's times with one thread per element or lane, before their
-# redesign, quoted from PERF.md's kernel table (NVIDIA H100 80GB HBM3,
-# 700.00 W), not measured by this script: shown in the kernel phase lines
-# only, under a key that says so, never in the kernels summary line
+# K1's, K2's, K3's and K6's times with one thread per element or lane,
+# before their redesign (K2, K3: PR 3's; K1, K6: PR 4's), quoted from
+# PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W), not measured by
+# this script: shown in the kernel phase lines only, under a key that says
+# so, never in the kernels summary line
 QUOTED_EARLIER_MS = {"final_exp_b1": 14.14, "final_exp_b2": 14.15, "fold_g1": 3.25,
-                     "fold_g2": 13.09}
+                     "fold_g2": 13.09, "miller_product": 12.08, "miller_product_pair": 11.99,
+                     "exp_g1": 4.35, "exp_g2": 16.86}
 PROBE_ITERS = 4096
 # the TPU kernel each entry point replaces (PERF.md's kernel table)
 KERNEL_IDS = {"fq_mul": "K0", "miller_product": "K1", "miller_product_pair": "K1",
@@ -216,8 +220,9 @@ def transcript_imuls(appends, challenge):
 
 
 def probe_products(lib, dev):
-    """Cycles per product of the latency probe's two products (fold.cu
-    fq_mul_probe_kernel), each result checked against the host's power."""
+    """Cycles per product of the latency probe (fold.cu
+    fq_mul_probe_kernel: bn254.cuh's fq_mul), the result checked against
+    the host's power."""
     import torch
     from sipp_tpu_torch import params
     from sipp_tpu_torch.fields import FQ
@@ -225,16 +230,13 @@ def probe_products(lib, dev):
     x, y = 12345678901234567, 98765432109876543
     xy = FQ.encode([x, y], dev)
     want = x * pow(y, PROBE_ITERS, params.P) % params.P
-    out, stream = {}, torch.cuda.current_stream(dev).cuda_stream
-    for which, name in enumerate(("fq_mul", "fq_mul_cc")):
-        res = torch.zeros(17, dtype=torch.int64, device=dev)
-        for _ in range(2):                           # the first call warms up
-            err = lib.sipp_fq_mul_probe(xy.data_ptr(), res.data_ptr(), which, PROBE_ITERS,
-                                        stream)
-        torch.cuda.synchronize()
-        ok = err == 0 and FQ.decode(res[:16]) == want
-        out[name] = {"cycles_per_product": int(res[16]) / PROBE_ITERS, "value_ok": ok}
-    return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = torch.zeros(17, dtype=torch.int64, device=dev)
+    for _ in range(2):                               # the first call warms up
+        err = lib.sipp_fq_mul_probe(xy.data_ptr(), res.data_ptr(), PROBE_ITERS, stream)
+    torch.cuda.synchronize()
+    ok = err == 0 and FQ.decode(res[:16]) == want
+    return {"fq_mul": {"cycles_per_product": int(res[16]) / PROBE_ITERS, "value_ok": ok}}
 
 
 def idle_share(fn):
@@ -317,16 +319,20 @@ def main():
     emit({"phase": "instance", "n": N, "seed": SEED, "host_s": time.time() - t0})
 
     # ------------------------------------- 2. kernels against plain versions
-    def kernel_ms(fn, reps=5):
+    def kernel_ms(fn, reps=9):
+        """The median over reps launches, each between two CUDA events, after
+        a warm-up: a latency-bound kernel's time moves by some percent from
+        launch to launch, and one slow launch should not move the reading."""
         fn()
         torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        for start, end in events:
+            start.record()
             fn()
-        end.record()
+            end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+        return statistics.median(start.elapsed_time(end) for start, end in events)
 
     def plain_ms(fn):
         torch.cuda.synchronize()
@@ -360,7 +366,8 @@ def main():
 
     a_inf, b_inf = with_infinity(a, b)
     pp_inf, pq_inf = with_infinity(pair_p, pair_q)
-    # 130 lanes: padded to two 128-lane blocks whose partials are multiplied
+    # 130 lanes: 33 blocks of 4 lanes, the last with 2 lanes past n, whose
+    # partials the kernel's second launch multiplies
     pp_130, pq_130 = torch.cat([pp_inf, pair_p[:2]]), torch.cat([pq_inf, pair_q[:2]])
 
     def k1(p, q, pair=False):
@@ -522,6 +529,8 @@ def main():
         ("miller_product_n6", "miller_product", *k1_src, *k1(a_inf[:6], b_inf[:6])),
         ("miller_product_pair", "miller_product_pair", *k1_src, *k1(pair_p, pair_q, True)),
         ("miller_product_pair_inf", "miller_product_pair", *k1_src, *k1(pp_inf, pq_inf, True)),
+        ("miller_product_pair_n64", "miller_product_pair", *k1_src,
+         *k1(pair_p[:64], pair_q[:64], True)),
         ("miller_product_pair_n2", "miller_product_pair", *k1_src,
          *k1(pair_p[:2], pair_q[:2], True)),
         ("miller_product_pair_n6", "miller_product_pair", *k1_src,

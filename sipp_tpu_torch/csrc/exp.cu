@@ -11,64 +11,62 @@
 // x at infinity leaves the accumulator as it is, and so does an offset at
 // infinity.  The verifier's MSM-form finals call it with a zero offset.
 //
-// Design: one thread per lane, the templates of curve.cuh (the fold ladder's
-// doubling and mixed add).  The bits are a (254, B) plane, so a warp reads
-// one bit of 32 neighbouring lanes at a time; a lane whose bit is 0 skips the
-// add, and its warp waits for the lanes that take it (the TPU kernel computes
-// the add for every lane and selects).  What bounds it on the H100: the
-// latency of each lane's chain of ~254 doublings and ~127 additions of
-// dependent 256-bit multiplies (integer multiply latency), plus one Fermat
-// inversion; at B = 128 lanes the grid fills two SMs of 132.
+// What bounds it on the H100: latency, as K3 (the MSM finals' 128 lanes
+// fill 16 blocks of one warp).  Design: K3's staged ladder (ladder.cuh: 4
+// threads a lane, 8 lanes a warp, the doubling in 3 and the addition in 5
+// stages of independent products), with one difference: the bits are a
+// (254, B) plane, one per lane, so the 8 lanes of a warp disagree on the
+// add.  As the TPU kernel does, every step computes the addition and each
+// lane commits it or not on its own bit, as data (add_staged's `take`), so
+// the warp never diverges around a __syncwarp: 254 x (3 + 5) stages.  The
+// complete add of the offset is the staged addition, then, on lanes where
+// it met P == Q (accumulator not at infinity, offset not at infinity,
+// H = R = 0), the staged doubling of the offset, which the other lanes do
+// not commit; P == -Q gives Z3 = Z H = 0, infinity, by itself.
 #include <cuda_runtime.h>
 
-#include "curve.cuh"
-
-#define EXP_BLOCK 64
+#include "ladder.cuh"
 
 template <class F>
-__global__ void __launch_bounds__(EXP_BLOCK)
+__global__ void __launch_bounds__(FOLD_LANES * FOLD_GROUP)
 exp_kernel(const long long* __restrict__ xs, const long long* __restrict__ offs,
            const long long* __restrict__ bits, long long* __restrict__ out, int n) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    typedef typename F::T T;
+    __shared__ FoldLane<F> lanes[FOLD_LANES];
+    __shared__ bool doubled[FOLD_LANES];
+    const int sub = threadIdx.x % FOLD_GROUP;
+    const int lane = blockIdx.x * FOLD_LANES + threadIdx.x / FOLD_GROUP;
+    const bool live = lane < n;
+    FoldLane<F>& L = lanes[threadIdx.x / FOLD_GROUP];
     const size_t base = (size_t)lane * 2 * F::LIMBS;
-    T bx, by, ox, oy;
-    F::load(bx, xs + base); F::load(by, xs + base + F::LIMBS);
-    F::load(ox, offs + base); F::load(oy, offs + base + F::LIMBS);
-    Jac<F> acc;
-    F::zero(acc.X); F::zero(acc.Y); F::zero(acc.Z);
-    for (int i = 0; i < 254; i++) {
-        jac_dbl<F>(acc);
-        if (bits[(size_t)i * n + lane]) jac_add_mixed<F>(acc, bx, by);
+    if (sub == 0) {
+        F::zero(L.zero);
+        if (live) {
+            F::load(L.hx, xs + base); F::load(L.hy, xs + base + F::LIMBS);
+            F::load(L.lx, offs + base); F::load(L.ly, offs + base + F::LIMBS);
+        } else {
+            F::zero(L.lx); F::zero(L.ly); F::zero(L.hx); F::zero(L.hy);
+        }
+        F::zero(L.X); F::zero(L.Y); F::zero(L.Z);
     }
-    jac_add_mixed_complete<F>(acc, ox, oy);
-    T x, y;
-    jac_to_affine<F>(x, y, acc);
-    F::store(out + base, x);
-    F::store(out + base + F::LIMBS, y);
-}
-
-template <class F>
-static int launch_exp(const void* x, const void* off, const void* bits, void* out, int n,
-                      void* stream) {
-    if (n <= 0) return (int)cudaErrorInvalidValue;
-    const int block = n < EXP_BLOCK ? n : EXP_BLOCK;
-    exp_kernel<F><<<(n + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
-        (const long long*)x, (const long long*)off, (const long long*)bits, (long long*)out, n);
-    return (int)cudaGetLastError();
-}
-
-// x, off, out: (n, 2, 16) G1 or (n, 2, 2, 16) G2 affine int64 limbs;
-// bits: (254, n) int64, MSB first, one column per lane.
-extern "C" int sipp_exp_g1(const void* x, const void* off, const void* bits, void* out, int n,
-                           void* stream) {
-    return launch_exp<G1Field>(x, off, bits, out, n, stream);
-}
-
-extern "C" int sipp_exp_g2(const void* x, const void* off, const void* bits, void* out, int n,
-                           void* stream) {
-    return launch_exp<G2Field>(x, off, bits, out, n, stream);
+    __syncwarp();
+    for (int i = 0; i < 254; i++) {
+        dbl_staged<F>(L, sub, true);
+        add_staged<F>(L, L.hx, L.hy, sub, live && bits[(size_t)i * n + lane] != 0);
+    }
+    // the complete add of the offset
+    const bool acc_finite = !F::is_zero(L.Z);
+    add_staged<F>(L, L.lx, L.ly, sub, true);
+    if (sub == 0) {
+        const bool same = acc_finite && !(F::is_zero(L.lx) && F::is_zero(L.ly))
+                          && F::is_zero(L.s[11]) && F::is_zero(L.s[12]);
+        if (same) {
+            L.X = L.lx; L.Y = L.ly; F::one(L.Z);
+        }
+        doubled[threadIdx.x / FOLD_GROUP] = same;
+    }
+    __syncwarp();
+    dbl_staged<F>(L, sub, doubled[threadIdx.x / FOLD_GROUP]);
+    if (sub == 0 && live) store_affine<F>(out + base, L);
 }
 
 // K8: off_i * x_i^(k_i) per lane in Fq12.
@@ -105,6 +103,31 @@ fq12_exp_kernel(const long long* __restrict__ xs, const long long* __restrict__ 
     fq12_store(out + (size_t)lane * 192, pw);
 }
 
+// The launchers (nvcc only: a CPU test compiles the device code above with
+// g++ on an emulated carry flag and host threads).
+#ifdef __CUDACC__
+template <class F>
+static int launch_exp(const void* x, const void* off, const void* bits, void* out, int n,
+                      void* stream) {
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    exp_kernel<F><<<(n + FOLD_LANES - 1) / FOLD_LANES, FOLD_LANES * FOLD_GROUP, 0,
+                    (cudaStream_t)stream>>>(
+        (const long long*)x, (const long long*)off, (const long long*)bits, (long long*)out, n);
+    return (int)cudaGetLastError();
+}
+
+// x, off, out: (n, 2, 16) G1 or (n, 2, 2, 16) G2 affine int64 limbs;
+// bits: (254, n) int64, MSB first, one column per lane.
+extern "C" int sipp_exp_g1(const void* x, const void* off, const void* bits, void* out, int n,
+                           void* stream) {
+    return launch_exp<G1Field>(x, off, bits, out, n, stream);
+}
+
+extern "C" int sipp_exp_g2(const void* x, const void* off, const void* bits, void* out, int n,
+                           void* stream) {
+    return launch_exp<G2Field>(x, off, bits, out, n, stream);
+}
+
 // x, off, out: (n, 2, 3, 2, 16) int64 limbs; bits: (254, n) int64, MSB first.
 extern "C" int sipp_fq12_exp(const void* x, const void* off, const void* bits, void* out,
                              int n, void* stream) {
@@ -114,3 +137,4 @@ extern "C" int sipp_fq12_exp(const void* x, const void* off, const void* bits, v
         (const long long*)x, (const long long*)off, (const long long*)bits, (long long*)out, n);
     return (int)cudaGetLastError();
 }
+#endif  // __CUDACC__

@@ -39,12 +39,12 @@
 // * the state (12 registers, the 63 stored powers, each warp's 18
 //   products and their parts, the tables) lives in static shared memory,
 //   ~47 KB: lanes that read different rows of a table in constant memory
-//   would wait for one another.  The Fq product is fq_cc.cuh's carry-chain
+//   would wait for one another.  The Fq product is bn254.cuh's carry-chain
 //   product, inline into the Fq2 product and into the split products.
 // The lambda tape stays serial on warp 0, as it is written.
 #include <cuda_runtime.h>
 
-#include "fq_cc.cuh"
+#include "bn254.cuh"
 #include "schedule_params.cuh"
 
 #define FEXP_WARPS 8
@@ -67,12 +67,6 @@ struct FexpShared {
     Tables tab;
 };
 
-template <class T>
-static __device__ __forceinline__ void copy_table(T& dst, const T& src) {
-    for (int i = threadIdx.x; i < (int)sizeof(T); i += blockDim.x)
-        reinterpret_cast<char*>(&dst)[i] = reinterpret_cast<const char*>(&src)[i];
-}
-
 static __device__ __forceinline__ Fq2* coeffs(Fq12& a) { return reinterpret_cast<Fq2*>(&a); }
 
 // r = the sum of the coefficients of a that mask selects
@@ -82,7 +76,7 @@ static __device__ __forceinline__ void fq2_sum(Fq2& r, const Fq2* a, int mask) {
     for (int q = 0; q < 6; q++) {
         if (!(mask >> q & 1)) continue;
         if (first) r = a[q];
-        else fq2_add_cc(r, r, a[q]);
+        else fq2_add(r, r, a[q]);
         first = false;
     }
 }
@@ -90,9 +84,9 @@ static __device__ __forceinline__ void fq2_sum(Fq2& r, const Fq2* a, int mask) {
 // acc +/-= c v for a small non-zero integer c
 static __device__ __forceinline__ void fq2_add_small(Fq2& acc, const Fq2& v, int c) {
     Fq2 t = v;
-    for (int k = 1; k < (c < 0 ? -c : c); k++) fq2_add_cc(t, t, v);
-    if (c > 0) fq2_add_cc(acc, acc, t);
-    else fq2_sub_cc(acc, acc, t);
+    for (int k = 1; k < (c < 0 ? -c : c); k++) fq2_add(t, t, v);
+    if (c > 0) fq2_add(acc, acc, t);
+    else fq2_sub(acc, acc, t);
 }
 
 // One table operation on one warp (every lane calls it; l = lane):
@@ -113,23 +107,23 @@ static __device__ __noinline__ void lin_op(Fq2* out, const Fq2* a, const Fq2* b,
             fq2_sum(y, b, tab.ymask[op][k]);
             Fq u = part == 1 ? x.c1 : x.c0, w = part == 1 ? y.c1 : y.c0;
             if (part == 2) {
-                fq_add_cc(u, u, x.c1);
-                fq_add_cc(w, w, y.c1);
+                fq_add(u, u, x.c1);
+                fq_add(w, w, y.c1);
             }
-            fq_mul_cc(parts[k][part], u, w);
+            fq_mul(parts[k][part], u, w);
         }
         __syncwarp();
         if (l < nprod) {
             Fq s;
-            fq_add_cc(s, parts[l][0], parts[l][1]);
-            fq_sub_cc(prods[l].c0, parts[l][0], parts[l][1]);
-            fq_sub_cc(prods[l].c1, parts[l][2], s);
+            fq_add(s, parts[l][0], parts[l][1]);
+            fq_sub(prods[l].c0, parts[l][0], parts[l][1]);
+            fq_sub(prods[l].c1, parts[l][2], s);
         }
     } else if (l < nprod) {
         Fq2 x, y;
         fq2_sum(x, a, tab.xmask[op][l]);
         fq2_sum(y, b, tab.ymask[op][l]);
-        fq2_mul_cc(prods[l], x, y);
+        fq2_mul(prods[l], x, y);
     }
     __syncwarp();
     Fq2 o;
@@ -144,8 +138,8 @@ static __device__ __noinline__ void lin_op(Fq2* out, const Fq2* a, const Fq2* b,
             if (term[2]) fq2_add_small(s, v, term[1]);
             else fq2_add_small(p, v, term[1]);
         }
-        fq2_mul_xi_cc(s, s);
-        fq2_add_cc(o, p, s);
+        fq2_mul_xi(s, s);
+        fq2_add(o, p, s);
     }
     __syncwarp();
     if (l < tab.nout[op]) out[l] = o;
@@ -156,13 +150,13 @@ static __device__ __noinline__ void lin_op(Fq2* out, const Fq2* a, const Fq2* b,
 static __device__ __noinline__ void frob_op(Fq2* out, const Fq2* a, int k, int l) {
     if (l < 6) {
         Fq2 t = a[l], c;
-        if (k & 1) fq2_conj_cc(t, t);
+        if (k & 1) fq2_conj(t, t);
 #pragma unroll
         for (int w = 0; w < 8; w++) {
             c.c0.v[w] = BN_FROB[k - 1][l][0][w];
             c.c1.v[w] = BN_FROB[k - 1][l][1][w];
         }
-        fq2_mul_cc(out[l], t, c);
+        fq2_mul(out[l], t, c);
     }
     __syncwarp();
 }
@@ -171,7 +165,7 @@ static __device__ __noinline__ void frob_op(Fq2* out, const Fq2* a, int k, int l
 static __device__ __forceinline__ void conj_op(Fq2* out, const Fq2* a, int l) {
     if (l < 6) {
         if (l < 3) out[l] = a[l];
-        else fq2_neg_cc(out[l], a[l]);
+        else fq2_neg(out[l], a[l]);
     }
     __syncwarp();
 }
@@ -233,7 +227,7 @@ final_exp_kernel(const long long* __restrict__ in, long long* __restrict__ out) 
         OP(t0, f, f, OP_INV_SQ);
         OP(abc, t0, t0, OP_INV6_ABC);
         OP(nrm, t0, abc, OP_INV6_NORM);
-        if (l == 0) fq2_inv_cc(nrm[1], nrm[0]);
+        if (l == 0) fq2_inv(nrm[1], nrm[0]);
         __syncwarp();
         OP(t0inv, abc, nrm + 1, OP_INV6_OUT);
         OP(finv, f, t0inv, OP_INV_OUT);

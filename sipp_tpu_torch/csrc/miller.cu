@@ -1,32 +1,321 @@
-// K1: the Miller product  prod_i miller(P_i, Q_i)  over a block of lanes;
-// K7 (below it): one step of the Miller loop, sharing K1's device functions.
+// K1: the Miller product  prod_i miller(P_i, Q_i)  over lanes; K7 (below
+// it): one step of the Miller loop.
 //
 // Replaces sipp_tpu/ops/pallas_miller.py:miller_product_fused (kernel body
 // _full_kernel): the whole optimal-ate Miller loop over the NAF of 6x+2, the
 // two Frobenius correction lines, infinity masking, and the Fq12 product
-// over the lanes.  pair = 1 stops the product at stride 2, so lane 0 of a
-// block holds the product of its even lanes and lane 1 that of its odd lanes
-// (a fold round's Z_L and Z_R, interleaved by the caller).
-//
-// Design: one thread per pairing lane, B lanes per block (B a power of two,
-// at most 128; the wrapper pads with infinity lanes and launches
-// ceil(n / 128) blocks, each writing its partial product).  The NAF digit
-// is shared by every lane, so the branch on it is uniform.  The lines are
-// the reference's denominator-cleared ones (pairing/ate.py:_dbl_step and
+// over the lanes.  pair = 1 forms the product of the even lanes and that of
+// the odd lanes apart (a fold round's Z_L and Z_R).  The lines are the
+// reference's denominator-cleared ones (pairing/ate.py:_dbl_step and
 // _add_step): another line scaling would give another pre-final-exp value.
-// The lane product is a tree in shared memory: at each level the upper half
-// of the live threads park their Fq12 (384 B each) and the lower half
-// multiplies it in; field products are exact, so the order is free.
 //
-// What bounds it on the H100: this is a long serial chain of 256-bit
-// multiplies per lane, bound by integer multiply throughput and by register
-// pressure (f, T, Q, P and the tower temporaries exceed 255 registers and
-// spill to local memory).  At n = 128 one block runs on one of 132 SMs.
-// Spreading a lane over several threads, or lanes over more blocks, is the
-// first work for a later change.
+// What bounds it on the H100: latency.  A lane is a chain of ~10,000
+// dependent Fq products; 128 lanes are a few warps an SM.  The design cuts
+// the chain:
+//
+// * one warp per lane, MILLER_BLOCK_LANES lanes a block.  The lane runs as
+//   a program of table operations (ops/schedule.py: M_OPS, PROGRAM, written
+//   into the generated schedule_params.cuh): each operation is up to 32
+//   independent Fq2 products, product k on thread k, then output j on
+//   thread j as a linear form over the products and the lane's slots (Fq2
+//   values in shared memory: f, T, P, Q and its Frobenius images, the line,
+//   the stages' values).  An operation costs one Fq2 product (an Fq product
+//   where it has few: its Karatsuba parts then run on two or three threads)
+//   and one combine pass, where one thread made its products in a row.
+// * the G2 doubling runs as 3 stages of independent products and the mixed
+//   addition as 5, as in K3 (ladder.cuh), with the line's coefficients as
+//   products of those stages.  f's squaring (the complex squaring, 12 Fq2
+//   products) runs beside the doubling's second stage on the other
+//   threads, and each line multiply (15) beside the next stage that does
+//   not write f, so a zero digit is 3 operations and a set digit 8, ~309
+//   for the loop and the Frobenius lines, against ~9,950 dependent Fq
+//   products on one thread.
+// * a warp runs divergent paths one after another, so every thread runs
+//   the same code on its own table row (the operands, the forms); the
+//   tables sit in shared memory, since lanes that read different rows of
+//   constant memory would wait for one another.  The program is read by
+//   every thread at once (constant memory).
+// * an infinity lane (P = O or Q = O: all-zero) and a lane past n skip the
+//   loop and contribute f = 1; no lane is padded on the host.
+// * the lane product: a tree over the block's warps in shared memory (in
+//   pair mode it stops at stride 2), one partial per block (and parity);
+//   then a second launch of MILLER_TREE_WARPS warps per parity multiplies
+//   the partials (each warp a strided share of them, then a tree over the
+//   warps).  Both use the Fq12 multiply's table; field products are exact,
+//   so the order is free.
 #include <cuda_runtime.h>
 
-#include "bn254.cuh"   // with bn254_params.cuh: MILLER_MAX_BLOCK = ops/miller.py:BLOCK
+// with bn254_params.cuh: MILLER_BLOCK_LANES and MILLER_PARTIAL_LIMBS (an
+// Fq12 partial product as 96 words, in int64 units) from ops/miller.py
+#include "bn254.cuh"
+#include "schedule_params.cuh"
+
+#define MILLER_TREE_WARPS 8
+
+// the tables of the operations, copied to shared memory at the start
+struct MillerTables {
+    unsigned char nprod[MOP_N_OPS], nout[MOP_N_OPS];
+    unsigned char x[MOP_N_OPS][MOP_MAX_PROD][MOP_OPND], y[MOP_N_OPS][MOP_MAX_PROD][MOP_OPND];
+    unsigned char dst[MOP_N_OPS][MOP_MAX_OUT];
+    signed char terms[MOP_N_OPS][MOP_MAX_OUT][MOP_MAX_TERMS][3];
+};
+
+// a warp's products and, where they are split, their Karatsuba parts
+struct MillerProducts {
+    Fq2 prod[MOP_MAX_PROD];
+    Fq part[MOP_SPLIT2][3];
+};
+
+struct MillerLane {
+    Fq2 slot[MILLER_NSLOT];
+    MillerProducts w;
+};
+
+static __device__ void load_miller_tables(MillerTables& tab) {
+    copy_table(tab.nprod, MOP_NPROD);
+    copy_table(tab.nout, MOP_NOUT);
+    copy_table(tab.x, MOP_X);
+    copy_table(tab.y, MOP_Y);
+    copy_table(tab.dst, MOP_DST);
+    copy_table(tab.terms, MOP_TERMS);
+}
+
+// r = the operand t over src: a signed sum of slots, a term optionally
+// times xi (bits 6 and 7 of its byte)
+static __device__ __forceinline__ void mop_operand(Fq2& r, const Fq2* src,
+                                                   const unsigned char* t) {
+    for (int i = 0; i < MOP_OPND; i++) {
+        const unsigned e = t[i];
+        if (e == 0xFF) break;
+        Fq2 v = src[e & 0x3F];
+        if (e & 0x40) fq2_mul_xi(v, v);
+        if (i == 0) {
+            if (e & 0x80) fq2_neg(r, v);
+            else r = v;
+        } else if (e & 0x80) {
+            fq2_sub(r, r, v);
+        } else {
+            fq2_add(r, r, v);
+        }
+    }
+}
+
+// Karatsuba part `part` of x * y: x0 y0, x1 y1, (x0 + x1)(y0 + y1)
+static __device__ __forceinline__ void kara_part(Fq& r, const Fq2& x, const Fq2& y, int part) {
+    Fq u = part == 1 ? x.c1 : x.c0, w = part == 1 ? y.c1 : y.c0;
+    if (part == 2) {
+        fq_add(u, u, x.c1);
+        fq_add(w, w, y.c1);
+    }
+    fq_mul(r, u, w);
+}
+
+// v <- c v for a small c > 0 (double and add)
+static __device__ __forceinline__ void fq2_times(Fq2& v, int c) {
+    if (c == 1) return;
+    const Fq2 b = v;
+    int bit = 1;
+    while ((bit << 1) <= c) bit <<= 1;
+    for (bit >>= 1; bit; bit >>= 1) {
+        fq2_add(v, v, v);
+        if (c & bit) fq2_add(v, v, b);
+    }
+}
+
+// o = the form t over the products and the slots.  The terms come sorted
+// by (power of xi, |coefficient|): each run of equal ones is summed, then
+// scaled once (and multiplied by xi once).
+static __device__ __forceinline__ void mop_form(Fq2& o, const signed char (*t)[3],
+                                                const Fq2* prod, const Fq2* slots) {
+    Fq2 run;
+    int cur = 0, curxi = 0;
+    bool have = false;
+    for (int i = 0; i <= MOP_MAX_TERMS; i++) {
+        const int c = i < MOP_MAX_TERMS ? t[i][1] : 0;
+        const int ac = c < 0 ? -c : c, xi = i < MOP_MAX_TERMS ? t[i][2] : 0;
+        if (cur && (ac != cur || xi != curxi)) {
+            fq2_times(run, cur);
+            if (curxi) fq2_mul_xi(run, run);
+            if (have) fq2_add(o, o, run);
+            else o = run;
+            have = true;
+            cur = 0;
+        }
+        if (c == 0) break;
+        const int src = t[i][0];
+        const Fq2& v = src < MOP_MAX_PROD ? prod[src] : slots[src - MOP_MAX_PROD];
+        if (cur == 0) {
+            if (c > 0) run = v;
+            else fq2_neg(run, v);
+            cur = ac;
+            curxi = xi;
+        } else if (c > 0) {
+            fq2_add(run, run, v);
+        } else {
+            fq2_sub(run, run, v);
+        }
+    }
+}
+
+// One table operation on one warp (every thread calls it; l = its lane):
+// x operands over xs, y operands over ys, forms over the products and
+// slots, outputs into slots, written after every read.  Up to 10 products
+// run as their three Karatsuba Fq products on three threads, up to
+// MOP_SPLIT2 as two threads each (parts 0 and 2, part 1), more as one Fq2
+// product a thread.
+static __device__ __noinline__ void mop_run(int op, const Fq2* xs, const Fq2* ys, Fq2* slots,
+                                            MillerProducts& w, const MillerTables& tab, int l) {
+    const int nprod = tab.nprod[op];
+    const int split = nprod <= 10 ? 3 : nprod <= MOP_SPLIT2 ? 2 : 1;
+    const int k = l / split, part = l % split;
+    if (k < nprod) {
+        Fq2 x, y;
+        mop_operand(x, xs, tab.x[op][k]);
+        mop_operand(y, ys, tab.y[op][k]);
+        if (split == 1) {
+            fq2_mul(w.prod[k], x, y);
+        } else {
+            for (int p = part; p < 3; p += split) kara_part(w.part[k][p], x, y, p);
+        }
+    }
+    __syncwarp();
+    if (split > 1 && l < nprod) {
+        Fq s;
+        fq_add(s, w.part[l][0], w.part[l][1]);
+        fq_sub(w.prod[l].c0, w.part[l][0], w.part[l][1]);
+        fq_sub(w.prod[l].c1, w.part[l][2], s);
+    }
+    __syncwarp();
+    const int nout = tab.nout[op];
+    Fq2 o;
+    if (l < nout) mop_form(o, tab.terms[op][l], w.prod, slots);
+    __syncwarp();
+    if (l < nout) slots[tab.dst[op][l]] = o;
+    __syncwarp();
+}
+
+// f (slots 0..5) as 96 words at dst, or from src
+static __device__ void store_partial(long long* dst, const Fq2* f, int l) {
+    if (l < 6) *reinterpret_cast<Fq2*>(reinterpret_cast<u32*>(dst) + 16 * l) = f[l];
+}
+static __device__ void load_partial(Fq2* f, const long long* src, int l) {
+    if (l < 6) f[l] = *reinterpret_cast<const Fq2*>(reinterpret_cast<const u32*>(src) + 16 * l);
+}
+static __device__ void set_one(Fq2* f, int l) {
+    if (l == 0) fq2_one(f[0]);
+    else if (l < 6) fq2_zero(f[l]);
+}
+
+// G2 Frobenius on twist affine coordinates: (conj(x) cx, conj(y) cy)
+static __device__ void twist_frob(Fq2& o, const Fq2& a, int y) {
+    Fq2 c, t;
+    for (int w = 0; w < 8; w++) {
+        c.c0.v[w] = BN_TWF[y][0][w];
+        c.c1.v[w] = BN_TWF[y][1][w];
+    }
+    fq2_conj(t, a);
+    fq2_mul(o, t, c);
+}
+
+// p: (n, 2, 16), q: (n, 2, 2, 16) int64 limbs; partials: per block, one
+// (pair: two, even then odd) Fq12 of MILLER_PARTIAL_LIMBS
+__global__ void __launch_bounds__(32 * MILLER_BLOCK_LANES)
+miller_product_kernel(const long long* __restrict__ p, const long long* __restrict__ q,
+                      long long* __restrict__ partials, int n, int pair) {
+    __shared__ MillerTables tab;
+    __shared__ MillerLane lanes[MILLER_BLOCK_LANES];
+    const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+    const int lane = blockIdx.x * MILLER_BLOCK_LANES + warp;
+    MillerLane& L = lanes[warp];
+    Fq2* s = L.slot;
+    load_miller_tables(tab);
+    if (lane < n) {
+        if (l < 2) {
+            fq_load(s[l ? MS_YP : MS_XP].c0, p + 32 * lane + 16 * l);
+            fq_zero(s[l ? MS_YP : MS_XP].c1);
+        } else if (l < 4) {
+            fq2_load(s[l == 2 ? MS_QX : MS_QY], q + 64 * lane + 32 * (l - 2));
+        }
+    }
+    __syncthreads();
+    // e(O, Q) = e(P, O) = 1: such lanes, and lanes past n, skip the loop
+    const bool live = lane < n && !(fq_is_zero(s[MS_XP].c0) && fq_is_zero(s[MS_YP].c0))
+                      && !(fq2_is_zero(s[MS_QX]) && fq2_is_zero(s[MS_QY]));
+    if (live) {
+        if (l < 2) {                  // pi(Q), then pi^2(Q), -pi^2(Q).y
+            Fq2 t;
+            twist_frob(t, s[l ? MS_QY : MS_QX], l);
+            s[l ? MS_Q1Y : MS_Q1X] = t;
+            twist_frob(t, t, l);
+            if (l) fq2_neg(s[MS_NQ2Y], t);
+            else s[MS_Q2X] = t;
+        } else if (l == 2) {
+            fq2_neg(s[MS_NQY], s[MS_QY]);
+        } else if (l == 3) {
+            s[MS_X] = s[MS_QX];
+            s[MS_Y] = s[MS_QY];
+            fq2_one(s[MS_Z]);
+        }
+        if (l >= 4) set_one(s, l - 4);  // f = 1 on threads 4..9
+        __syncwarp();
+        for (int i = 0; i < MILLER_PROG_LEN; i++) {
+            if (MILLER_PROG[i][1] != 0xFF) {
+                if (l < 2) s[MS_AX + l] = s[MILLER_PROG[i][1 + l]];
+                __syncwarp();
+            }
+            mop_run(MILLER_PROG[i][0], s, s, s, L.w, tab, l);
+        }
+    } else {
+        set_one(s, l);
+    }
+    __syncthreads();
+    for (int st = MILLER_BLOCK_LANES / 2; st >= (pair ? 2 : 1); st /= 2) {
+        if (warp < st) mop_run(MOP_MUL, s, lanes[warp + st].slot, s, L.w, tab, l);
+        __syncthreads();
+    }
+    const int k = pair ? 2 : 1;
+    if (warp < k)
+        store_partial(partials + ((size_t)blockIdx.x * k + warp) * MILLER_PARTIAL_LIMBS, s, l);
+}
+
+struct TreeWarp {
+    Fq2 acc[6], other[6];
+    MillerProducts w;
+};
+
+// block `parity` of k = pair ? 2 : 1: out[parity] = the product of the
+// nblk partials of that parity, (2, 3, 2, 16) int64 limbs
+__global__ void __launch_bounds__(32 * MILLER_TREE_WARPS)
+miller_tree_kernel(const long long* __restrict__ partials, long long* __restrict__ out,
+                   int nblk, int pair) {
+    __shared__ MillerTables tab;
+    __shared__ TreeWarp tw[MILLER_TREE_WARPS];
+    const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+    const int k = pair ? 2 : 1, parity = blockIdx.x;
+    TreeWarp& W = tw[warp];
+    load_miller_tables(tab);
+    __syncthreads();
+    if (warp < nblk)
+        load_partial(W.acc, partials + ((size_t)warp * k + parity) * MILLER_PARTIAL_LIMBS, l);
+    else
+        set_one(W.acc, l);
+    __syncwarp();
+    for (int j = warp + MILLER_TREE_WARPS; j < nblk; j += MILLER_TREE_WARPS) {
+        load_partial(W.other, partials + ((size_t)j * k + parity) * MILLER_PARTIAL_LIMBS, l);
+        __syncwarp();
+        mop_run(MOP_MUL, W.acc, W.other, W.acc, W.w, tab, l);
+    }
+    __syncthreads();
+    for (int st = MILLER_TREE_WARPS / 2; st >= 1; st /= 2) {
+        if (warp < st) mop_run(MOP_MUL, W.acc, tw[warp + st].acc, W.acc, W.w, tab, l);
+        __syncthreads();
+    }
+    if (warp == 0 && l < 6) fq2_store(out + (size_t)parity * 192 + 32 * l, W.acc[l]);
+}
+
+// ---------------------------------------------------------------- K7
+// The one-thread Miller step functions below (fq12_mul_line, dbl_step,
+// add_step, and bn254.cuh's fq12_sqr) serve K7 alone.
 
 struct Jac2 { Fq2 X, Y, Z; };
 struct Line { Fq2 a, b, c; };   // a + b w + c v w
@@ -97,76 +386,6 @@ static __device__ __noinline__ void add_step(Jac2& t, Line& l, const Fq2& x2, co
     t.X = X3; t.Y = Y3; t.Z = Z3;
 }
 
-// G2 Frobenius on twist affine coordinates: (conj(x) cx, conj(y) cy)
-static __device__ void twist_frob(Fq2& xo, Fq2& yo, const Fq2& x, const Fq2& y) {
-    Fq2 cx, cy, t;
-    for (int w = 0; w < 8; w++) {
-        cx.c0.v[w] = BN_TWF[0][0][w]; cx.c1.v[w] = BN_TWF[0][1][w];
-        cy.c0.v[w] = BN_TWF[1][0][w]; cy.c1.v[w] = BN_TWF[1][1][w];
-    }
-    fq2_conj(t, x); fq2_mul(xo, t, cx);
-    fq2_conj(t, y); fq2_mul(yo, t, cy);
-}
-
-static __device__ __noinline__ void miller_lane(Fq12& f, const Fq& xp, const Fq& yp,
-                                                const Fq2& qx, const Fq2& qy) {
-    Fq2 nqy;
-    fq2_neg(nqy, qy);
-    Jac2 t;
-    t.X = qx; t.Y = qy; fq2_one(t.Z);
-    fq12_one(f);
-    Line l;
-    for (int i = 0; i < BN_NAF_LEN; i++) {
-        fq12_sqr(f, f);
-        dbl_step(t, l, xp, yp);
-        fq12_mul_line(f, l);
-        int d = BN_NAF[i];
-        if (d != 0) {
-            add_step(t, l, qx, d == 1 ? qy : nqy, xp, yp);
-            fq12_mul_line(f, l);
-        }
-    }
-    Fq2 q1x, q1y, q2x, q2y;
-    twist_frob(q1x, q1y, qx, qy);
-    twist_frob(q2x, q2y, q1x, q1y);
-    fq2_neg(q2y, q2y);
-    add_step(t, l, q1x, q1y, xp, yp);
-    fq12_mul_line(f, l);
-    add_step(t, l, q2x, q2y, xp, yp);
-    fq12_mul_line(f, l);
-}
-
-__global__ void __launch_bounds__(MILLER_MAX_BLOCK)
-miller_product_kernel(const long long* __restrict__ p, const long long* __restrict__ q,
-                      long long* __restrict__ out, int pair) {
-    __shared__ Fq12 park[MILLER_MAX_BLOCK / 2];
-    const int tid = threadIdx.x;
-    const int lane = blockIdx.x * blockDim.x + tid;
-    Fq xp, yp;
-    Fq2 qx, qy;
-    fq_load(xp, p + 32 * lane);
-    fq_load(yp, p + 32 * lane + 16);
-    fq2_load(qx, q + 64 * lane);
-    fq2_load(qy, q + 64 * lane + 32);
-    Fq12 f;
-    miller_lane(f, xp, yp, qx, qy);
-    // e(O, Q) = e(P, O) = 1
-    bool inf_p = fq_is_zero(xp) && fq_is_zero(yp);
-    bool inf_q = fq2_is_zero(qx) && fq2_is_zero(qy);
-    if (inf_p || inf_q) fq12_one(f);
-
-    const int stop = pair ? 2 : 1;
-    for (int s = blockDim.x / 2; s >= stop; s /= 2) {
-        if (tid >= s && tid < 2 * s) park[tid - s] = f;
-        __syncthreads();
-        if (tid < s) fq12_mul(f, f, park[tid]);
-        __syncthreads();
-    }
-    const int k = pair ? 2 : 1;
-    if (tid < k && tid < blockDim.x)
-        fq12_store(out + (size_t)(blockIdx.x * k + tid) * 192, f);
-}
-
 // K7: ONE Miller step for n lanes (replaces sipp_tpu/ops/pallas_miller.py:
 // miller_step, kernel _step_kernel): f <- f^2 * line_dbl(T, P), T <- 2T,
 // then, when the shared NAF digit is not 0, f <- f * line_add(T, +-Q, P),
@@ -177,9 +396,10 @@ miller_product_kernel(const long long* __restrict__ p, const long long* __restri
 // fill four SMs; the digit comes by value (a launch needs no host read) and
 // is uniform over the grid.  The carry stays in the port's (n, ...) layout
 // in device memory between launches, canonical.  What bounds it on the
-// H100: the same per-lane latency chain as K1 (38 dependent Fq2 products a
-// step, 66 with the add), plus the carry's 2,304 bytes of int64 limbs read
-// and written per lane, and a launch per digit.
+// H100: each lane's latency chain on one thread (38 dependent Fq2 products
+// a step, 66 with the add), plus the carry's 2,304 bytes of int64 limbs
+// read and written per lane, and a launch per digit.  K1's warp-per-lane
+// operations (above) are the design a redesign of K7 would start from.
 #define STEP_BLOCK 32
 
 __global__ void __launch_bounds__(STEP_BLOCK)
@@ -216,6 +436,9 @@ miller_step_kernel(int digit, const long long* __restrict__ qp,
     fq2_store(t_out + (size_t)lane * 96 + 64, t.Z);
 }
 
+// The launchers (nvcc only: a CPU test compiles the device code above with
+// g++ on an emulated carry flag and host threads).
+#ifdef __CUDACC__
 // digit in {0, 1, 2}; qp, qn: (n, 2, 2, 16) Q and -Q; p: (n, 2, 16);
 // f_in, f_out: (n, 2, 3, 2, 16); t_in, t_out: (n, 3, 2, 16) Jacobian; all
 // int64 limbs, outputs distinct from inputs.
@@ -234,16 +457,24 @@ extern "C" int sipp_miller_step(int digit, const void* qp, const void* qn, const
 // p: (n, 2, 16), q: (n, 2, 2, 16) int64 limbs; block: lanes per block, a
 // power of two up to MILLER_MAX_BLOCK that divides n (the wrapper chooses
 // it); out: (n / block, pair ? 2 : 1, 2, 3, 2, 16).
-extern "C" int sipp_miller_product(const void* p, const void* q, void* out, int n,
-                                   int block, int pair, void* stream) {
-    if (n <= 0 || block <= 0 || block > MILLER_MAX_BLOCK || n % block != 0
-            || (block & (block - 1)) != 0 || (pair && block < 2))
-        return (int)cudaErrorInvalidValue;
-    miller_product_kernel<<<n / block, block, 0, (cudaStream_t)stream>>>(
-        (const long long*)p, (const long long*)q, (long long*)out, pair);
+
+// p: (n, 2, 16), q: (n, 2, 2, 16) int64 limbs; partials: scratch of
+// ceil(n / MILLER_BLOCK_LANES) x (pair ? 2 : 1) x MILLER_PARTIAL_LIMBS
+// int64; out: (pair ? 2 : 1, 2, 3, 2, 16).  Two launches on the stream.
+extern "C" int sipp_miller_product(const void* p, const void* q, void* partials, void* out,
+                                   int n, int pair, void* stream) {
+    if (n <= 0 || (pair && n % 2)) return (int)cudaErrorInvalidValue;
+    const int nblk = (n + MILLER_BLOCK_LANES - 1) / MILLER_BLOCK_LANES;
+    miller_product_kernel<<<nblk, 32 * MILLER_BLOCK_LANES, 0, (cudaStream_t)stream>>>(
+        (const long long*)p, (const long long*)q, (long long*)partials, n, pair);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+    miller_tree_kernel<<<pair ? 2 : 1, 32 * MILLER_TREE_WARPS, 0, (cudaStream_t)stream>>>(
+        (const long long*)partials, (long long*)out, nblk, pair);
     return (int)cudaGetLastError();
 }
 
 extern "C" const char* sipp_cuda_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
+#endif  // __CUDACC__

@@ -35,7 +35,7 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "build"
 CUDA_SRC = PKG / "csrc"
 CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu", "transcript.cu", "exp.cu", "fq.cu")
-CUDA_HEADERS = ("bn254.cuh", "curve.cuh", "fq_cc.cuh")
+CUDA_HEADERS = ("bn254.cuh", "ladder.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -89,7 +89,7 @@ def params_header() -> str:
     from .. import hostref, params
     from ..fields import tower
     from ..pairing.ate import TAPE
-    from .miller import BLOCK
+    from .miller import BLOCK, PARTIAL_LIMBS
 
     P, R = params.P, 1 << 256
 
@@ -108,7 +108,8 @@ def params_header() -> str:
     naf = list(reversed(params.ATE_NAF[:-1]))
     lines.append(f"#define BN_NAF_LEN {len(naf)}")
     lines.append(f"#define BN_TAPE_LEN {len(TAPE)}")
-    lines.append(f"#define MILLER_MAX_BLOCK {BLOCK}")
+    lines.append(f"#define MILLER_BLOCK_LANES {BLOCK}")
+    lines.append(f"#define MILLER_PARTIAL_LIMBS {PARTIAL_LIMBS}")
     text = "\n".join(lines) + "\n"
     text += _arr("BN_PM2", "uint32_t", "[8]", _words(P - 2))
     text += _arr("BN_NAF", "signed char", f"[{len(naf)}]", naf)
@@ -157,10 +158,11 @@ def transcript_header() -> str:
 
 
 def schedule_header() -> str:
-    """The redesigned K2's and K3's schedules (ops/schedule.py): per
-    operation, the Fq2 products' input masks and each output's linear form
-    (source, coefficient, power of xi; padded with coefficient 0), and the
-    x-power's product tree over the stored squarings."""
+    """The schedules of ops/schedule.py: K2's (per operation, the Fq2
+    products' input masks and each output's linear form: source,
+    coefficient, power of xi, padded with coefficient 0; the x-power's
+    product tree over the stored squarings) and K1's (the slots, the
+    Miller operations' tables and the program)."""
     from . import schedule as S
 
     ops = S.OPS
@@ -183,6 +185,35 @@ def schedule_header() -> str:
                   for t in (list(op.terms[q]) if q < len(op.terms) else [])
                   + [pad] * (S.MAX_TERMS - (len(op.terms[q]) if q < len(op.terms) else 0))
                   for v in t])
+    # K1's Miller program: operand terms as slot | 0x40 (times xi) | 0x80
+    # (negated), 0xFF-padded; forms as (source, coefficient, xi power),
+    # padded with coefficient 0
+    mops = S.M_OPS
+    text += "".join(f"#define MS_{name} {i}\n" for i, name in enumerate(S.SLOTS))
+    text += "".join(f"#define MOP_{op.name.upper()} {i}\n" for i, op in enumerate(mops))
+    text += (f"#define MILLER_NSLOT {len(S.SLOTS)}\n#define MOP_N_OPS {len(mops)}\n"
+             f"#define MOP_MAX_PROD {S.M_PROD}\n#define MOP_OPND {S.M_OPND}\n"
+             f"#define MOP_SPLIT2 {S.M_SPLIT2}\n#define MOP_MAX_OUT {S.M_MAX_OUT}\n"
+             f"#define MOP_MAX_TERMS {S.M_MAX_TERMS}\n#define MILLER_PROG_LEN {len(S.PROGRAM)}\n")
+    text += _arr("MOP_NPROD", "unsigned char", f"[{len(mops)}]", [len(op.x) for op in mops])
+    text += _arr("MOP_NOUT", "unsigned char", f"[{len(mops)}]", [len(op.dst) for op in mops])
+    for name in ("x", "y"):
+        text += _arr(f"MOP_{name.upper()}", "unsigned char",
+                     f"[{len(mops)}][{S.M_PROD}][{S.M_OPND}]",
+                     [b for op in mops for k in range(S.M_PROD)
+                      for b in _operand_bytes(getattr(op, name), k, S.M_OPND)])
+    text += _arr("MOP_DST", "unsigned char", f"[{len(mops)}][{S.M_MAX_OUT}]",
+                 [d for op in mops for d in list(op.dst) + [0] * (S.M_MAX_OUT - len(op.dst))])
+    text += _arr("MOP_TERMS", "signed char",
+                 f"[{len(mops)}][{S.M_MAX_OUT}][{S.M_MAX_TERMS}][3]",
+                 [v for op in mops for j in range(S.M_MAX_OUT)
+                  for t in (list(op.terms[j]) if j < len(op.terms) else [])
+                  + [pad] * (S.M_MAX_TERMS - (len(op.terms[j]) if j < len(op.terms) else 0))
+                  for v in t])
+    text += _arr("MILLER_PROG", "unsigned char", f"[{len(S.PROGRAM)}][3]",
+                 [v for name, addend in S.PROGRAM
+                  for v in (S.M_OP_ID[name], *((S.SLOT[a] for a in addend) if addend
+                                               else (0xFF, 0xFF)))])
     width = max(len(level) for level in S.POWX_TREE)
     text += _arr("POWX_N", "unsigned char", f"[{len(S.POWX_TREE)}]",
                  [len(level) for level in S.POWX_TREE])
@@ -190,6 +221,12 @@ def schedule_header() -> str:
                  [v for level in S.POWX_TREE
                   for pair in list(level) + [(0, 0)] * (width - len(level)) for v in pair])
     return text
+
+
+def _operand_bytes(operands, k, width):
+    """Operand k of a Miller operation as the kernel reads it."""
+    terms = operands[k] if k < len(operands) else ()
+    return [s | 0x40 * xi | 0x80 * neg for s, xi, neg in terms] + [0xFF] * (width - len(terms))
 
 
 def _nvcc() -> str:
@@ -250,7 +287,7 @@ def cuda_library():
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for name, args in {
-        "sipp_miller_product": [vp, vp, vp, ci, ci, ci, vp],
+        "sipp_miller_product": [vp, vp, vp, vp, ci, ci, vp],
         "sipp_miller_step": [ci, vp, vp, vp, vp, vp, vp, vp, ci, vp],
         "sipp_final_exp": [vp, vp, ci, vp],
         "sipp_fold_g1": [vp, vp, vp, vp, ci, vp],
@@ -262,7 +299,7 @@ def cuda_library():
         "sipp_exp_g2": [vp, vp, vp, vp, ci, vp],
         "sipp_fq12_exp": [vp, vp, vp, vp, ci, vp],
         "sipp_fq_mul": [vp, vp, vp, ci, vp],
-        "sipp_fq_mul_probe": [vp, vp, ci, ci, vp],
+        "sipp_fq_mul_probe": [vp, vp, ci, vp],
     }.items():
         fn = getattr(lib, name)
         fn.argtypes = args

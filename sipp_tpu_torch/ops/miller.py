@@ -14,7 +14,8 @@ from ..pairing import ate
 from ..pairing.ate import miller_step_plain  # K7's plain version, beside its wrapper
 from . import _build
 
-BLOCK = 128   # most lanes per block; _build emits it as MILLER_MAX_BLOCK
+BLOCK = 4     # lanes (warps) per block of K1; _build emits it as MILLER_BLOCK_LANES
+PARTIAL_LIMBS = 48   # an Fq12 partial product of the kernel's scratch, in int64
 
 
 def miller_step(digit: int, qp, qn, p, f, t):
@@ -61,10 +62,9 @@ def miller_product_plain(p, q, pair: bool = False):
 
 
 def _lanes(n: int, pair: bool) -> int:
-    """Launch width: a power of two up to one block, else whole blocks."""
+    """Launch width: whole blocks of BLOCK lanes (the kernel runs the lanes
+    past n as lanes of f = 1)."""
     w = max(n, 2 if pair else 1)
-    if w <= BLOCK:
-        return 1 << (w - 1).bit_length()
     return -(-w // BLOCK) * BLOCK
 
 
@@ -78,27 +78,23 @@ def miller_product(p, q, pair: bool = False):
     if p.device.type != "cuda":
         raise ValueError(f"miller_product: unsupported device {p.device}")
     p = _build.check_cuda_input(p, "p", (2, 16))
-    q = _build.check_cuda_input(q, "q", (2, 2, 16))
+    q = _build.check_cuda_input(q, "q", (2, 2, 16), p.device)
     lib = _build.cuda_library()
     n = p.shape[0]
-    w = _lanes(n, pair)
-    if w > n:   # infinity lanes contribute 1 to either parity class
-        p = torch.cat([p, p.new_zeros((w - n, 2, 16))])
-        q = torch.cat([q, q.new_zeros((w - n, 2, 2, 16))])
     k = 2 if pair else 1
-    block = min(w, BLOCK)
-    out = torch.empty((w // block, k, 2, 3, 2, 16), dtype=torch.int64, device=p.device)
+    partials = torch.empty((_lanes(n, pair) // BLOCK, k, PARTIAL_LIMBS), dtype=torch.int64,
+                           device=p.device)
+    out = torch.empty((k, 2, 3, 2, 16), dtype=torch.int64, device=p.device)
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = lib.sipp_miller_product(p.data_ptr(), q.data_ptr(), out.data_ptr(), w,
-                                      block, int(pair), stream)
+        err = lib.sipp_miller_product(p.data_ptr(), q.data_ptr(), partials.data_ptr(),
+                                      out.data_ptr(), n, int(pair), stream)
     _build.check_launch(lib, err, "miller_product")
     if pair:
         miller_product.pair_launches += 1
-    else:
-        miller_product.launches += 1
-    res = ate.product_tree(out) if out.shape[0] > 1 else out[0]
-    return res if pair else res[0]
+        return out
+    miller_product.launches += 1
+    return out[0]
 
 
 miller_product.launches = 0

@@ -1,7 +1,7 @@
-"""The product schedules of the redesigned kernels K2 (csrc/fexp.cu) and K3
-(csrc/fold.cu), as data that ops/_build.py writes into the kernels'
-constants header, with plain PyTorch evaluators of the same data for the
-CPU tests.
+"""The product schedules of the redesigned kernels K1 (csrc/miller.cu), K2
+(csrc/fexp.cu) and K3/K6 (csrc/ladder.cuh), as data that ops/_build.py
+writes into the kernels' constants header, with plain PyTorch evaluators
+of the same data for the CPU tests.
 
 K2 spreads each Fq12-level operation over the threads of one warp: thread
 k < nprod computes the Fq2 product x_k * y_k, where x_k (y_k) is the sum of
@@ -17,11 +17,14 @@ tower inversion), so a test that evaluates a table against fields/tower.py
 checks the kernel's own table.  POWX_TREE is the x-power's product tree
 over the stored squarings (the TPU kernel's _powx_ref schedule).
 
-K3 runs each Jacobian doubling and mixed addition as stages of
+K3 and K6 run each Jacobian doubling and mixed addition as stages of
 independent products, one per thread of a group of four; dbl_staged and
 add_mixed_staged are the plain versions of those stages (same products,
 same adds between them, same selects), which the tests hold against
 curves' own dbl and add_mixed.
+
+K1 runs a Miller lane on one warp as a program of the same kind of table
+operations over the lane's slots (M_OPS, PROGRAM; see that section).
 """
 
 import collections
@@ -314,3 +317,297 @@ def add_mixed_staged(C, p, q_aff):
     out = C._pt(X3, F_.sub(Ya, Yb), Z3)
     out = torch.where(C._expand(f.is_zero(Z)), C.jac_from_affine(q_aff), out)
     return torch.where(C._expand(C.is_affine_infinity(q_aff)), p, out)
+
+
+# ------------------------------------------------- K1's Miller program
+#
+# K1 (csrc/miller.cu) runs each Miller lane on one warp as a program of
+# table operations over the lane's slots: Fq2 values in shared memory
+# (SLOTS).  An operation is up to M_PROD independent Fq2 products, product
+# k = x_k * y_k on thread k (split into its Karatsuba parts over two or
+# three threads where there are few), then output j on thread j: slot
+# dst[j] = the linear form terms[j] over the products and the slots, all
+# outputs written after every read.  An operand is a short signed sum of
+# slots, a term of it optionally times xi; a form's terms are
+# (source, coefficient, power of xi), with source k < M_PROD the product k
+# and M_PROD + s the slot s.  The stages below are derived from the
+# reference's formulas (pairing/ate.py: _dbl_step, _add_step with its
+# denominator-cleared lines, the Fq12 complex squaring, the sparse line
+# multiply); the program (PROGRAM) strings them along the NAF of 6x+2 and
+# runs the Fq12 squaring and the line multiply on the threads a curve stage
+# leaves idle.
+
+M_PROD = 32                    # products of one operation: a warp's threads
+M_OPND = 4                     # terms of an operand
+M_SPLIT2 = 16                  # up to this many products run on 2 threads each
+SLOTS = ("f0", "f1", "f2", "f3", "f4", "f5",          # f, coefficient 3 i + j of w^i v^j
+         "X", "Y", "Z", "XP", "YP",                    # T (Jacobian), P as Fq2 (x, 0)
+         "QX", "QY", "NQY", "Q1X", "Q1Y", "Q2X", "NQ2Y",  # Q, -Q, pi(Q), -pi^2(Q)
+         "AX", "AY",                                   # the addition's addend
+         "LA", "LB", "LC",                             # the line a + b w + c v w
+         "A", "B", "ZZ", "YZ", "M", "XB", "C", "S", "T1", "T2",        # doubling
+         "AT1", "ZYP", "H", "R", "HH", "RR", "HHH", "V")               # addition
+SLOT = {name: i for i, name in enumerate(SLOTS)}
+ADDENDS = {1: ("QX", "QY"), 2: ("QX", "NQY"), "frob1": ("Q1X", "Q1Y"),
+           "frob2": ("Q2X", "NQ2Y")}
+
+MillerOp = collections.namedtuple("MillerOp", "name x y dst terms")
+
+
+def _opnd(*names):
+    """An operand: slot names, '-' negates, 'xi:' multiplies by xi."""
+    out = []
+    for n in names:
+        neg, n = n.startswith("-"), n.lstrip("-")
+        xi, n = n.startswith("xi:"), n.split(":")[-1]
+        out.append((SLOT[n], int(xi), int(neg)))
+    return tuple(out)
+
+
+def _v(name):
+    return Lin.src(M_PROD + SLOT[name])
+
+
+class _Stage:
+    """A list of products and output forms, built symbolically."""
+
+    def __init__(self):
+        self.prods, self.outs = [], []
+
+    def mul(self, x, y):
+        self.prods.append((_opnd(*x), _opnd(*y)))
+        return Lin.src(len(self.prods) - 1)
+
+    def out(self, dst, form):
+        self.outs.append((SLOT[dst], form))
+
+
+def _shift(form, off):
+    return Lin({(s + off if s < M_PROD else s, x): c for (s, x), c in form.t.items()})
+
+
+def _merge(name, *stages):
+    """One operation of the stages' products and outputs (which must not
+    write a slot twice)."""
+    prods, outs = [], []
+    for st in stages:
+        off = len(prods)
+        prods += st.prods
+        outs += [(d, _shift(f, off)) for d, f in st.outs]
+    dsts = [d for d, _ in outs]
+    if len(prods) > M_PROD or len(set(dsts)) != len(dsts) or len(outs) > M_PROD:
+        raise ValueError(f"{name}: {len(prods)} products, outputs {dsts}")
+    terms = [tuple(sorted(f.terms(), key=lambda t: (t[2], abs(t[1]), t[0]))) for _, f in outs]
+    return MillerOp(name, tuple(x for x, _ in prods), tuple(y for _, y in prods),
+                    tuple(dsts), tuple(terms))
+
+
+def _sqr():
+    """f <- f^2, complex squaring: t = c0 c1, u = (c0 + c1)(c0 + v c1),
+    c0' = u - t - v t, c1' = 2 t (12 Fq2 products, 36 Fq products)."""
+    st = _Stage()
+    f = [f"f{q}" for q in range(6)]
+    c0c1 = [(f[j], f[3 + j]) for j in range(3)]
+    vc1 = [("xi:f5",), ("f3",), ("f4",)]                   # v c1 = (xi c12, c10, c11)
+    t = _fq6_comb([st.mul([f[j] for j in s], [f[3 + j] for j in s]) for s in FQ6_SETS])
+    u = _fq6_comb([st.mul([x for j in s for x in c0c1[j]],
+                          [x for j in s for x in (f[j], *vc1[j])]) for s in FQ6_SETS])
+    vt = _mul_by_v(t)
+    for i in range(3):
+        st.out(f[i], u[i] - t[i] - vt[i])
+        st.out(f[3 + i], 2 * t[i])
+    return st
+
+
+def _mul_line():
+    """f <- f (a + b w + c v w): 15 Fq2 products (csrc/miller.cu's
+    one-thread fq12_mul_line, the reference's)."""
+    st = _Stage()
+    f0, f1 = ["f0", "f1", "f2"], ["f3", "f4", "f5"]
+    v = [st.mul([f0[j]], ["LA"]) for j in range(3)]
+    v += [st.mul([f1[j]], ["LB"]) for j in range(3)]
+    v += [st.mul([f1[j]], ["LC"]) for j in range(3)]
+    v += [st.mul([f0[j], f1[j]], ["LA", "LB"]) for j in range(3)]
+    v += [st.mul([f0[j], f1[j]], ["LC"]) for j in range(3)]
+    r = [v[3] + v[8].xi(), v[4] + v[6], v[5] + v[7]]          # f1 (b + c v)
+    t = [v[9] + v[14].xi(), v[10] + v[12], v[11] + v[13]]     # (f0 + f1)(a + b + c v)
+    st.out("f0", v[0] + r[2].xi())
+    st.out("f1", v[1] + r[0])
+    st.out("f2", v[2] + r[1])
+    for j in range(3):
+        st.out(f1[j], t[j] - v[j] - r[j])
+    return st
+
+
+def _dbl(stage):
+    """T <- 2T with the line 2 Y Z^3 yp - 3 X^2 Z^2 xp w + (3 X^3 - 2 Y^2) v w,
+    in three stages of products."""
+    st = _Stage()
+    if stage == 1:
+        A, B = st.mul(["X"], ["X"]), st.mul(["Y"], ["Y"])
+        ZZ, YZ = st.mul(["Z"], ["Z"]), st.mul(["Y"], ["Z"])
+        for name, form in (("A", A), ("B", B), ("ZZ", ZZ), ("YZ", YZ), ("M", 3 * A),
+                           ("XB", _v("X") + B), ("Z", 2 * YZ)):
+            st.out(name, form)
+    elif stage == 2:
+        C, D = st.mul(["B"], ["B"]), st.mul(["XB"], ["XB"])
+        T1, T2 = st.mul(["YZ"], ["ZZ"]), st.mul(["A"], ["ZZ"])
+        T3, W = st.mul(["X"], ["A"]), st.mul(["M"], ["M"])
+        S = 2 * (D - _v("A") - C)                                  # 4 X Y^2
+        for name, form in (("C", C), ("S", S), ("X", W - 2 * S), ("LC", 3 * T3 - 2 * _v("B")),
+                           ("T1", T1), ("T2", T2)):
+            st.out(name, form)
+    else:
+        P = st.mul(["M"], ["S", "-X"])                             # M (S - X3)
+        a, b = st.mul(["T1"], ["YP"]), st.mul(["T2"], ["XP"])
+        st.out("Y", P - 8 * _v("C"))
+        st.out("LA", 2 * a)
+        st.out("LB", -3 * b)
+    return st
+
+
+def _add(stage):
+    """T <- T + (AX, AY) with the line Z3 yp - R xp w + (R x2 - Z3 y2) v w,
+    in five stages of products (the line after the third)."""
+    st = _Stage()
+    if stage == 1:
+        st.out("ZZ", st.mul(["Z"], ["Z"]))
+        st.out("AT1", st.mul(["AY"], ["Z"]))                      # y2 Z
+        st.out("ZYP", st.mul(["Z"], ["YP"]))
+    elif stage == 2:
+        U2, S2 = st.mul(["AX"], ["ZZ"]), st.mul(["AT1"], ["ZZ"])
+        st.out("H", U2 - _v("X"))
+        st.out("R", S2 - _v("Y"))
+    elif stage == 3:
+        HH, RR, Z3 = st.mul(["H"], ["H"]), st.mul(["R"], ["R"]), st.mul(["Z"], ["H"])
+        RX, HT1 = st.mul(["R"], ["AX"]), st.mul(["H"], ["AT1"])
+        a, b = st.mul(["H"], ["ZYP"]), st.mul(["R"], ["XP"])      # Z3 yp, R xp
+        for name, form in (("HH", HH), ("RR", RR), ("Z", Z3), ("LC", RX - HT1), ("LA", a),
+                           ("LB", -b)):
+            st.out(name, form)
+    elif stage == 4:
+        HHH, V = st.mul(["H"], ["HH"]), st.mul(["X"], ["HH"])
+        st.out("X", _v("RR") - HHH - 2 * V)
+        st.out("HHH", HHH)
+        st.out("V", V)
+    else:
+        Y1, Y2 = st.mul(["R"], ["V", "-X"]), st.mul(["Y"], ["HHH"])
+        st.out("Y", Y1 - Y2)
+    return st
+
+
+def _fq12_mul():
+    """The lane product's Fq12 multiply over slots 0..5 (x operands from one
+    lane, y operands from the other): K2's table as operand lists."""
+    op = OPS[OP_ID["mul"]]
+    st = _Stage()
+    for xm, ym in zip(op.xmask, op.ymask):
+        st.mul([f"f{q}" for q in range(6) if xm >> q & 1], [f"f{q}" for q in range(6) if ym >> q & 1])
+    for q, terms in enumerate(op.terms):
+        st.out(f"f{q}", Lin({(s, x): c for s, c, x in terms}))
+    return st
+
+
+M_OPS = (_merge("dbl1", _dbl(1)), _merge("dbl1_ml", _dbl(1), _mul_line()),
+         _merge("dbl2_sqr", _dbl(2), _sqr()), _merge("dbl3", _dbl(3)),
+         _merge("add1", _add(1)), _merge("add1_ml", _add(1), _mul_line()),
+         _merge("add2", _add(2)), _merge("add3", _add(3)),
+         _merge("add4_ml", _add(4), _mul_line()), _merge("add5", _add(5)),
+         _merge("ml", _mul_line()), _merge("mul", _fq12_mul()))
+M_OP_ID = {op.name: i for i, op in enumerate(M_OPS)}
+M_MAX_OUT = max(len(op.dst) for op in M_OPS)
+M_MAX_TERMS = max(len(t) for op in M_OPS for t in op.terms)
+
+
+def _program():
+    """(operation, addend) per step: along the digits, each doubling's three
+    stages with the squaring beside the second; a digit's line multiply
+    beside the next stage that does not write f (the next doubling's first,
+    or the addition's first); an addition's line multiply beside its fourth
+    stage; then the Frobenius lines, +pi(Q) and -pi^2(Q) (the last needs
+    its line only)."""
+    from ..pairing.ate import DIGITS
+
+    prog, pending = [], False
+    for d in DIGITS:
+        prog += [("dbl1_ml" if pending else "dbl1", None), ("dbl2_sqr", None), ("dbl3", None)]
+        pending = True
+        if d:
+            prog += [("add1_ml", ADDENDS[d]), ("add2", None), ("add3", None),
+                     ("add4_ml", None), ("add5", None)]
+            pending = False
+    prog += [("add1_ml" if pending else "add1", ADDENDS["frob1"]), ("add2", None),
+             ("add3", None), ("add4_ml", None), ("add5", None),
+             ("add1", ADDENDS["frob2"]), ("add2", None), ("add3", None), ("ml", None)]
+    return tuple(prog)
+
+
+PROGRAM = _program()
+
+
+# the plain evaluators of the Miller program (the CPU tests' view of the
+# kernel's tables)
+
+def _operand(slots, terms):
+    acc = None
+    for s, xi, neg in terms:
+        v = slots[..., s, :, :]
+        if xi:
+            v = tower.fq2_mul_xi(v)
+        acc = (F.neg(v) if neg else v) if acc is None else (F.sub(acc, v) if neg else F.add(acc, v))
+    return acc
+
+
+def run_miller_op(op, slots, yslots=None):
+    """One table operation on slots (..., n, 2, L); y operands from yslots
+    (default: slots).  Returns the new slots."""
+    yslots = slots if yslots is None else yslots
+    x = torch.stack([_operand(slots, t) for t in op.x])
+    y = torch.stack([_operand(yslots, t) for t in op.y])
+    prods = tower.fq2_mul(x, y)
+    zero = torch.zeros_like(slots[..., 0, :, :])
+    out = slots.clone()
+    for dst, terms in zip(op.dst, op.terms):
+        acc = zero
+        for src, c, xi in terms:
+            v = _scaled(prods[src] if src < M_PROD else slots[..., src - M_PROD, :, :], c)
+            v = tower.fq2_mul_xi(v) if xi else v
+            acc = F.add(acc, v) if c > 0 else F.sub(acc, v)
+        out[..., dst, :, :] = acc
+    return out
+
+
+def miller_slots(p_aff, q_aff):
+    """The kernel's slots at the start of a lane: f = 1, T = (Q, 1), P as
+    Fq2 (x, 0), Q, -Q, pi(Q), -pi^2(Q)."""
+    from ..pairing import ate
+
+    slots = torch.zeros((*p_aff.shape[:-2], len(SLOTS), 2, F.L), dtype=torch.int64,
+                        device=p_aff.device)
+    one = tower.fq12_one((), p_aff.device)[0, 0, 0]        # the Fq one
+    q1 = ate.twist_frob(q_aff)
+    q2 = ate.twist_frob(q1)
+    vals = {"f0": torch.stack([one, torch.zeros_like(one)]), "X": q_aff[..., 0, :, :],
+            "Y": q_aff[..., 1, :, :], "Z": torch.stack([one, torch.zeros_like(one)]),
+            "XP": torch.stack([p_aff[..., 0, :], torch.zeros_like(p_aff[..., 0, :])], -2),
+            "YP": torch.stack([p_aff[..., 1, :], torch.zeros_like(p_aff[..., 1, :])], -2),
+            "QX": q_aff[..., 0, :, :], "QY": q_aff[..., 1, :, :],
+            "NQY": F.neg(q_aff[..., 1, :, :]), "Q1X": q1[..., 0, :, :], "Q1Y": q1[..., 1, :, :],
+            "Q2X": q2[..., 0, :, :], "NQ2Y": F.neg(q2[..., 1, :, :])}
+    for name, v in vals.items():
+        slots[..., SLOT[name], :, :] = v
+    return slots
+
+
+def miller_program(p_aff, q_aff):
+    """Each lane's Miller value as the kernel computes it: PROGRAM's
+    operations on miller_slots, then f (..., 2, 3, 2, L); infinity lanes are
+    not masked here (the kernel skips them)."""
+    slots = miller_slots(p_aff, q_aff)
+    for name, addend in PROGRAM:
+        if addend:
+            slots = slots.clone()
+            slots[..., SLOT["AX"], :, :] = slots[..., SLOT[addend[0]], :, :]
+            slots[..., SLOT["AY"], :, :] = slots[..., SLOT[addend[1]], :, :]
+        slots = run_miller_op(M_OPS[M_OP_ID[name]], slots)
+    return _fq12(slots[..., :6, :, :])

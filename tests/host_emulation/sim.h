@@ -1,8 +1,9 @@
-// Host emulation of the CUDA built-ins that the K2/K3 device code uses, so
-// that g++ compiles sipp_tpu_torch/csrc/{fold,fexp}.cu's kernels for the CPU:
-// a block runs as host threads, __syncwarp / __syncthreads are barriers of
-// the warp's / block's threads, __shared__ variables are statics, and
-// fq_cc.cuh's carry flag is emulated (its #else branch).
+// Host emulation of the CUDA built-ins that the K1-K3 and K6 device code
+// uses, so that g++ compiles sipp_tpu_torch/csrc/{miller,fexp,fold,exp}.cu's
+// kernels for the CPU: a block runs as host threads, __syncwarp /
+// __syncthreads are barriers of the warp's / block's threads, __shared__
+// variables are statics, and bn254.cuh's carry flag is emulated (its #else
+// branch).
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -28,6 +29,7 @@ inline long long clock64() { return (long long)clock(); }
 #define __shared__ static
 #define __launch_bounds__(x)
 #define __restrict__
+#define __align__(n) alignas(n)
 
 // Run body as block `block` of `nthreads` threads (one block at a time: the
 // __shared__ statics are the block's shared memory).

@@ -1,10 +1,14 @@
-// Runs K3's and K2's device code (fold.cu, fexp.cu) and fq_cc.cuh's Fq
-// arithmetic on the CPU: see sim.h.
+// Runs the kernels' device code (miller.cu, fexp.cu, fold.cu, exp.cu) and
+// bn254.cuh's Fq arithmetic on the CPU: see sim.h.
 //
-//   sim fq N in out       N pairs (a, b) of 16-limb Fq -> a*b, a+b, a-b, 1/a
-//   sim fold_g1 N in out  lo, hi (N, 2, 16), bits (254,) -> (N, 2, 16)
-//   sim fold_g2 N in out  lo, hi (N, 2, 2, 16), bits (254,) -> (N, 2, 2, 16)
-//   sim fexp N in out     f (N, 2, 3, 2, 16) -> (N, 2, 3, 2, 16)
+//   sim fq N in out           N pairs (a, b) of 16-limb Fq -> a*b, a+b, a-b, 1/a
+//   sim fold_g1 N in out      lo, hi (N, 2, 16), bits (254,) -> (N, 2, 16)
+//   sim fold_g2 N in out      lo, hi (N, 2, 2, 16), bits (254,) -> (N, 2, 2, 16)
+//   sim exp_g1 N in out       x, off (N, 2, 16), bits (254, N) -> (N, 2, 16)
+//   sim exp_g2 N in out       x, off (N, 2, 2, 16), bits (254, N) -> (N, 2, 2, 16)
+//   sim fexp N in out         f (N, 2, 3, 2, 16) -> (N, 2, 3, 2, 16)
+//   sim miller N in out       p (N, 2, 16), q (N, 2, 2, 16) -> (2, 3, 2, 16)
+//   sim miller_pair N in out  the same -> (2, 2, 3, 2, 16)
 //
 // in and out hold int64 limbs, C order, in the port's format.
 #include "sim.h"
@@ -13,8 +17,10 @@
 #include <cstdlib>
 #include <cstring>
 
+#include "exp.cu"
 #include "fexp.cu"
 #include "fold.cu"
+#include "miller.cu"
 
 int main(int argc, char** argv) {
     if (argc != 5) return 2;
@@ -31,27 +37,44 @@ int main(int argc, char** argv) {
             Fq a, b, r[4];
             fq_load(a, &in[32 * i]);
             fq_load(b, &in[32 * i + 16]);
-            fq_mul_cc(r[0], a, b);
-            fq_add_cc(r[1], a, b);
-            fq_sub_cc(r[2], a, b);
-            fq_inv_cc(r[3], a);
+            fq_mul(r[0], a, b);
+            fq_add(r[1], a, b);
+            fq_sub(r[2], a, b);
+            fq_inv(r[3], a);
             for (int k = 0; k < 4; k++) fq_store(&out[64 * i + 16 * k], r[k]);
         }
     } else if (!strcmp(mode, "fexp")) {
         out.resize(192 * (size_t)n);
         for (int e = 0; e < n; e++)
             run_block(e, 32 * FEXP_WARPS, [&] { final_exp_kernel(in.data(), out.data()); });
+    } else if (!strncmp(mode, "miller", 6)) {
+        const int pair = !strcmp(mode, "miller_pair");
+        const int k = pair ? 2 : 1;
+        const int blocks = (n + MILLER_BLOCK_LANES - 1) / MILLER_BLOCK_LANES;
+        const long long* p = in.data();
+        const long long* q = p + (size_t)n * 32;
+        std::vector<long long> partials((size_t)blocks * k * MILLER_PARTIAL_LIMBS);
+        out.resize(192 * (size_t)k);
+        for (int b = 0; b < blocks; b++)
+            run_block(b, 32 * MILLER_BLOCK_LANES,
+                      [&] { miller_product_kernel(p, q, partials.data(), n, pair); });
+        for (int b = 0; b < k; b++)
+            run_block(b, 32 * MILLER_TREE_WARPS,
+                      [&] { miller_tree_kernel(partials.data(), out.data(), blocks, pair); });
     } else {
-        const bool g2 = !strcmp(mode, "fold_g2");
+        const bool g2 = mode[strlen(mode) - 1] == '2';
+        const bool ladder = !strncmp(mode, "exp", 3);
         const int limbs = g2 ? 32 : 16;
-        const long long* lo = in.data();
-        const long long* hi = lo + (size_t)n * 2 * limbs;
-        const long long* bits = hi + (size_t)n * 2 * limbs;
+        const long long* a = in.data();
+        const long long* b = a + (size_t)n * 2 * limbs;
+        const long long* bits = b + (size_t)n * 2 * limbs;
         out.resize((size_t)n * 2 * limbs);
-        for (int b = 0; b < (n + FOLD_LANES - 1) / FOLD_LANES; b++)
-            run_block(b, FOLD_LANES * FOLD_GROUP, [&] {
-                if (g2) fold_kernel<G2cc>(lo, hi, bits, out.data(), n);
-                else fold_kernel<G1cc>(lo, hi, bits, out.data(), n);
+        for (int blk = 0; blk < (n + FOLD_LANES - 1) / FOLD_LANES; blk++)
+            run_block(blk, FOLD_LANES * FOLD_GROUP, [&] {
+                if (ladder && g2) exp_kernel<G2Field>(a, b, bits, out.data(), n);
+                else if (ladder) exp_kernel<G1Field>(a, b, bits, out.data(), n);
+                else if (g2) fold_kernel<G2Field>(a, b, bits, out.data(), n);
+                else fold_kernel<G1Field>(a, b, bits, out.data(), n);
             });
     }
     f = fopen(argv[4], "wb");

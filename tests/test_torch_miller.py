@@ -69,20 +69,20 @@ def test_all_infinity_lanes_give_one(golden):
     assert torch.equal(miller.miller_product(a, b), tower.fq12_one())
 
 
-@pytest.mark.parametrize("n,pair,width", [(1, False, 1), (3, False, 4), (2, True, 2),
+@pytest.mark.parametrize("n,pair,width", [(1, False, 4), (3, False, 4), (2, True, 4),
                                           (64, True, 64), (128, False, 128),
-                                          (130, False, 256), (384, True, 384)])
+                                          (130, False, 132), (384, True, 384)])
 def test_launch_width(n, pair, width):
-    """Kernel launch width: a power of two up to one 128-lane block, whole
-    blocks beyond."""
+    """Kernel launch width: whole blocks of miller.BLOCK lanes, one warp a
+    lane (the lanes past n contribute 1)."""
     assert miller._lanes(n, pair) == width
 
 
 def test_kernel_header_carries_the_block_width():
-    """The CUDA side's MILLER_MAX_BLOCK is generated from miller.BLOCK."""
+    """The CUDA side's MILLER_BLOCK_LANES is generated from miller.BLOCK."""
     from sipp_tpu_torch.ops import _build
 
-    assert f"#define MILLER_MAX_BLOCK {miller.BLOCK}\n" in _build.params_header()
+    assert f"#define MILLER_BLOCK_LANES {miller.BLOCK}\n" in _build.params_header()
 
 
 def test_rejects_odd_pair_input(golden):

@@ -1,17 +1,22 @@
-"""The schedules of the redesigned K2 and K3 kernels on the CPU, tolerance 0.
+"""The schedules of the redesigned kernels K1, K2, K3 and K6 on the CPU,
+tolerance 0.
 
 ops/schedule.py holds them as data: K2's tables (the Fq2 products of each
 Fq12-level operation and each output's linear form, written into the
 kernels' generated schedule_params.cuh by ops/_build.py) and the x-power's
-product tree; K3's staged doubling and mixed addition.  Here the tables
-are evaluated in plain PyTorch against fields/tower.py, hostref and the
-JAX package's own schedule, and the stages against curves' dbl and
-add_mixed, on seeded values.
+product tree; K3's (and K6's) staged doubling and mixed addition; K1's
+Miller operations (the generic Fq12 squaring, the line multiply, the
+staged doubling and addition with their lines, the Fq12 multiply of the
+lane product) and the program that strings them along the loop.  Here the
+tables are evaluated in plain PyTorch against fields/tower.py, pairing/ate,
+hostref and the JAX package's own schedule, and the stages against curves'
+dbl and add_mixed, on seeded values.
 
-The last tests compile the kernels' device code itself (csrc/fq_cc.cuh,
-fold.cu, fexp.cu) with g++ on an emulated carry flag, run each block as
-host threads (tests/host_emulation/sim.h), and hold the results against
-the plain versions.  They need g++ with C++20 and skip without it.
+The last tests compile the kernels' device code itself (csrc/bn254.cuh,
+miller.cu, fold.cu, exp.cu, fexp.cu) with g++ on an emulated carry flag,
+run each block as host threads (tests/host_emulation/sim.h), and hold the
+results against the plain versions.  They need g++ with C++20 and skip
+without it.
 """
 
 import pathlib
@@ -26,7 +31,7 @@ import torch
 from sipp_tpu_torch import hostref, params
 from sipp_tpu_torch.curves import G1, G2, scalar_to_bits
 from sipp_tpu_torch.fields import FQ, tower
-from sipp_tpu_torch.ops import _build, fexp, fold, schedule
+from sipp_tpu_torch.ops import _build, exp, fexp, fold, miller, schedule
 from sipp_tpu_torch.pairing import ate
 from sipp_tpu_torch.utils.testing import random_instance
 
@@ -144,6 +149,114 @@ def test_staged_add_mixed_matches_curves(points, group):
         assert torch.equal(schedule.add_mixed_staged(C, p, q), C.add_mixed(p, q))
 
 
+def _miller_op(name):
+    return schedule.M_OPS[schedule.M_OP_ID[name]]
+
+
+def _with_f(slots, f):
+    slots = slots.clone()
+    slots[..., :6, :, :] = f.reshape(*f.shape[:-4], 6, 2, 16)
+    return slots
+
+
+def _f(slots):
+    return slots[..., :6, :, :].reshape(*slots.shape[:-3], 2, 3, 2, 16)
+
+
+@pytest.fixture(scope="module")
+def miller_lanes():
+    """Two seeded lanes' slots at the start of the loop, and f values."""
+    a, b = random_instance(2, seed=21, device="cpu")
+    return a, b, schedule.miller_slots(a, b), fq12_values(2, 22)
+
+
+def test_miller_sqr_table_matches_tower(miller_lanes):
+    """The generic (complex) squaring beside the doubling's second stage; f
+    is not cyclotomic during the loop."""
+    _, _, slots, f = miller_lanes
+    got = schedule.run_miller_op(_miller_op("dbl2_sqr"), _with_f(slots, f))
+    assert torch.equal(_f(got), tower.fq12_sqr(f))
+
+
+def test_miller_line_table_matches_tower(miller_lanes):
+    """The sparse line multiply f (a + b w + c v w), alone and beside each
+    stage it shares an operation with."""
+    _, _, slots, f = miller_lanes
+    line = fq12_values(2, 23).reshape(2, 6, 2, 16)[:, :3].unbind(1)
+    s = _with_f(slots, f)
+    for v, name in zip(line, ("LA", "LB", "LC")):
+        s[:, schedule.SLOT[name]] = v
+    want = tower.fq12_mul_line(f, *line)
+    for name in ("ml", "dbl1_ml", "add1_ml", "add4_ml"):
+        assert torch.equal(_f(schedule.run_miller_op(_miller_op(name), s)), want)
+
+
+def test_miller_mul_table_matches_tower(miller_lanes):
+    """The lane product's multiply, y operands from the other lane."""
+    _, _, slots, f = miller_lanes
+    g = fq12_values(2, 24)
+    got = schedule.run_miller_op(_miller_op("mul"), _with_f(slots, f), _with_f(slots, g))
+    assert torch.equal(_f(got), tower.fq12_mul(f, g))
+
+
+def test_miller_stages_match_the_reference_steps(miller_lanes):
+    """The staged doubling and addition give the reference's T and line
+    (pairing/ate.py _dbl_step, _add_step: the same line scaling)."""
+    a, b, slots, _ = miller_lanes
+    S = schedule.SLOT
+    xp, yp = a[..., 0, :], a[..., 1, :]
+    t0 = torch.stack([slots[:, S[n]] for n in ("X", "Y", "Z")], 1)
+    t_ref, line_ref = ate._dbl_step(t0, xp, yp)
+    s = slots
+    for name in ("dbl1", "dbl2_sqr", "dbl3"):
+        s = schedule.run_miller_op(_miller_op(name), s)
+    assert torch.equal(torch.stack([s[:, S[n]] for n in ("X", "Y", "Z")], 1), t_ref)
+    assert all(torch.equal(s[:, S[n]], v) for n, v in zip(("LA", "LB", "LC"), line_ref))
+    q1 = ate.twist_frob(b)
+    t_ref, line_ref = ate._add_step(t_ref, q1, xp, yp)
+    s = s.clone()
+    s[:, S["AX"]], s[:, S["AY"]] = s[:, S["Q1X"]], s[:, S["Q1Y"]]
+    for name in ("add1", "add2", "add3", "add4_ml", "add5"):
+        s = schedule.run_miller_op(_miller_op(name), s)
+    assert torch.equal(torch.stack([s[:, S[n]] for n in ("X", "Y", "Z")], 1), t_ref)
+    assert all(torch.equal(s[:, S[n]], v) for n, v in zip(("LA", "LB", "LC"), line_ref))
+
+
+def test_miller_program_matches_miller_loop(miller_lanes):
+    """The whole program: 3 operations a zero digit, 8 a set one, then the
+    Frobenius lines."""
+    a, b, _, _ = miller_lanes
+    from sipp_tpu_torch.pairing.ate import DIGITS
+
+    set_digits = sum(1 for d in DIGITS if d)
+    assert len(schedule.PROGRAM) == 3 * len(DIGITS) + 5 * set_digits + 9
+    assert torch.equal(schedule.miller_program(a, b), ate.miller_loop(a, b))
+
+
+def test_generated_header_holds_the_miller_tables():
+    """schedule_params.cuh's K1 arrays are the tables of ops/schedule.py."""
+    text = _build.schedule_header()
+
+    def array(name):
+        body = re.search(rf"{name}\[[^=]*= \{{([^}}]*)\}}", text).group(1)
+        return np.array([int(v) for v in body.split(",")])
+
+    ops = schedule.M_OPS
+    assert list(array("MOP_NPROD")) == [len(op.x) for op in ops]
+    x = array("MOP_X").reshape(len(ops), schedule.M_PROD, schedule.M_OPND)
+    terms = array("MOP_TERMS").reshape(len(ops), schedule.M_MAX_OUT, schedule.M_MAX_TERMS, 3)
+    dst = array("MOP_DST").reshape(len(ops), schedule.M_MAX_OUT)
+    for i, op in enumerate(ops):
+        for k, opnd in enumerate(op.x):
+            assert [b for b in x[i, k] if b != 0xFF] == [s | 64 * xi | 128 * neg
+                                                         for s, xi, neg in opnd]
+        assert list(dst[i, :len(op.dst)]) == list(op.dst)
+        for j, form in enumerate(op.terms):
+            assert [tuple(t) for t in terms[i, j] if t[1]] == list(form)
+    prog = array("MILLER_PROG").reshape(-1, 3)
+    assert [schedule.M_OPS[o].name for o in prog[:, 0]] == [n for n, _ in schedule.PROGRAM]
+
+
 # ------------------------------------------ the device code, emulated on the CPU
 
 @pytest.fixture(scope="module")
@@ -174,8 +287,8 @@ def run_sim(sim, mode, n, arrays):
 
 
 def test_fq_cc_matches_the_plain_field(sim):
-    """fq_cc.cuh's product, add, sub and inverse on the emulated carry
-    flag, edge values (0, 1, p - 1, the Montgomery one) included."""
+    """bn254.cuh's carry-chain product, add, sub and inverse on the emulated
+    carry flag, edge values (0, 1, p - 1, the Montgomery one) included."""
     rng = np.random.default_rng(9)
     edge = [0, 1, 2, params.P - 1, params.P - 2, (1 << 256) % params.P]
     vals = edge + [int.from_bytes(rng.bytes(40), "little") % params.P for _ in range(40)]
@@ -210,3 +323,41 @@ def test_final_exp_kernel_emulated_matches_plain(sim):
     f = ate.miller_loop(a, b)
     got = run_sim(sim, "fexp", 2, [f]).reshape(f.shape)
     assert torch.equal(got, fexp.final_exp_plain(f))
+
+
+@pytest.mark.parametrize("lanes,pair", [(2, False), (5, False), (2, True), (6, True)])
+def test_miller_kernel_emulated_matches_plain(sim, lanes, pair):
+    """K1's device code (two launches: the lanes' warps with the block's
+    tree, then the partials' tree), against miller_product_plain: an
+    infinity P lane and an infinity Q lane; 5 and 6 lanes pad a second
+    block of 4 with lanes past n."""
+    a, b = random_instance(lanes, seed=31 + lanes, device="cpu")
+    if lanes > 2:
+        a[1], b[lanes - 2] = 0, 0
+    mode = "miller_pair" if pair else "miller"
+    got = run_sim(sim, mode, lanes, [a, b])
+    want = miller.miller_product_plain(a, b, pair=pair)
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_exp_kernel_emulated_matches_plain(sim, group):
+    """K6's device code at 9 lanes (two blocks) with per-lane bits: an x at
+    infinity, an offset at infinity, an offset equal to [k]x (the complete
+    add's doubling) and one equal to -[k]x."""
+    from sipp_tpu_torch import curves, hostref
+
+    a, b = random_instance(9, seed=13, device="cpu")
+    x = (a if group == "g1" else b).clone()
+    off = torch.roll(x, 3, 0).clone()
+    rng = np.random.default_rng(14)
+    ks = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(9)]
+    dec, enc, mul = ((curves.g1_decode, curves.g1_encode, hostref.g1_mul) if group == "g1"
+                     else (curves.g2_decode, curves.g2_encode, hostref.g2_mul))
+    x[1], off[2] = 0, 0
+    off[4] = enc([mul(dec(x[4:5])[0], ks[4])])[0]
+    off[6] = enc([mul(dec(x[6:7])[0], params.R - ks[6])])[0]
+    bits = torch.as_tensor(np.stack([scalar_to_bits(k) for k in ks], 1).astype(np.int64))
+    got = run_sim(sim, f"exp_{group}", 9, [x, off, bits]).reshape(x.shape)
+    assert torch.equal(got, getattr(exp, f"exp_{group}_plain")(x, off, bits))
+    assert bool((got[6] == 0).all())          # -[k]x + [k]x = O
