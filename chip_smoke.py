@@ -27,26 +27,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      the Fq product latency probe: clock64 cycles per product over 4,096
      dependent products on one thread of bn254.cuh's fq_mul (the one Fq
      product of every kernel), the result checked on the host (a
-     measurement, not a kernel of the table);
+     measurement, not a kernel of the table); then the transcript probe:
+     clock64 cycles per permutation over 64 chained permutations on one
+     warp and of one Fr inverse, K4/K5's design unit (transcript.cu), from
+     which K4's and K5's latency floors follow (their chains at the maximum
+     SM clock, no launch, load or store);
   2. each kernel against its plain PyTorch version on the same card inputs,
      at the paths' shapes (bit equality: tolerance 0, every value is a
      canonical field element), with both times and the kernel's bound; K1
      also with infinity lanes, at padded widths (6 lanes), over 33 blocks
      (130 lanes), and in pair mode at the fold rounds' 128, 64 and 2 lanes;
-     K4/K5 on a state and Fq12 values of the n = 128 run; K6 with
+     K5 on Z of the n = 128 run and on each of its 7 rounds' (state, Z_L),
+     K4 on each round's (state, Z_L, Z_R), from an on-chip proof, both also
+     on a state whose words are 0 and p - 1; K6 with
      MSM-finals bits at 128 lanes, and at 100 lanes with infinity x lanes,
      infinity offsets and offsets equal to [k]x; the digest -> challenge
-     step of K4 alone on synthetic digests with zero digits; K7 for digits
+     step of K4 alone on synthetic digests with zero digits, and K4's Fr
+     inverse alone on 0, 1, 2, r - 1, r - 2, values whose steps shift by
+     32 bits and more, and seeded values; K7 for digits
      0, 1 and 2 on a carry three digits into the loop, and with infinity
      lanes; K8 at the verifier's 14 rows of a proof with their challenge
      bits, and at 100 lanes with all-zero bits, offsets of one and x = 1;
      K0 at 4096 and 1000 elements; K3 at 128 lanes (dead lanes, a dead lo
      under a live hi, a dead hi under a live lo) and at the fold rounds'
-     64 and 1 lanes.  K1's, K2's, K3's and K6's lines carry the time of the
-     same case with the earlier one-thread-per-lane kernels, quoted from
-     PERF.md's kernel table and not measured here, as
-     earlier_ms_quoted_from_perf_md beside ms (the kernels summary line
-     carries measured numbers only);
+     64 and 1 lanes.  K1's, K2's, K3's, K4's, K5's and K6's lines carry the
+     time of the same case before their redesign, quoted from PERF.md's
+     kernel table and not measured here, as earlier_ms_quoted_from_perf_md
+     beside ms (the kernels summary line carries measured numbers only);
+     K4's and K5's also their latency_floor_ms (K4's with the shifts and
+     probed cycles of its own challenge's inverse);
   3. the n = 128 aggregation Z = FE(prod Miller(A_i, B_i)) must hash to the
      JAX reference's digest, then its steady-state time on distinct inputs;
   4. paths A, B and C, each with the launch counters set to 0 just before it
@@ -82,10 +91,14 @@ version computes on the same inputs (counted while it runs; for K6 less the
 additions that this run's bits and infinity lanes skip, for K8 less the
 multiplies its zero bits skip; each Fq12 squaring, which the plain version
 computes as a multiply of 54 products, counted at the kernels' 36), 256
-multiplies for an 8-word Montgomery product.  For K4 and K5 they are the kernel's own multiplies per launch
-(transcript_imuls): the plain version works on 16-bit Goldilocks limbs in
-Montgomery form, the kernel on canonical u64.  No PyTorch call computes any
-of these functions, so library_ms is null.
+multiplies for an 8-word Montgomery product.  For K4 and K5 they are the
+multiplies that the function needs (transcript_imuls: the permutations on
+u64 Goldilocks, the message encode, and for K4's challenge two Fr products
+and the word rows of the inverse's Montgomery division by 2^k, k counted
+on this run's challenge by the host's model of the kernel's binary
+extended Euclid, whose subtract-and-shift steps multiply nothing); the
+plain version works on 16-bit Goldilocks limbs in Montgomery form.  No PyTorch call computes any of
+these functions, so library_ms is null.
 
 Usage, from the root of a checkout (the first run builds the kernels with
 nvcc into sipp_tpu_torch/build/):
@@ -121,18 +134,22 @@ ADD_MIXED_PRODUCTS = 11               # field products of one incomplete mixed a
 GL_PRODUCT_IMULS = 8    # Goldilocks 64 x 64 -> 128 bits: 4 word products; the
 #                         reduction by 2^64 = 2^32 - 1 takes shifts and adds
 MDS_TERM_IMULS = 4      # an MDS entry (< 2^32) times a u64: 2 word products
+FR_DIV_ROW_IMULS = 17   # a word row of a Montgomery division: m, then m r
 FQ12_MUL_PRODUCTS = 54  # Fq products of one Fq12 multiply
 FQ12_SQR_PRODUCTS = 36  # of one complex squaring (bn254.cuh); the plain
 #                         tower.fq12_sqr multiplies, 54
-# K1's, K2's, K3's and K6's times with one thread per element or lane,
-# before their redesign (K2, K3: PR 3's; K1, K6: PR 4's), quoted from
-# PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700.00 W), not measured by
-# this script: shown in the kernel phase lines only, under a key that says
-# so, never in the kernels summary line
+# The redesigned kernels' times before their last redesign (K1, K2, K3, K6:
+# one thread per element or lane; K4, K5: shared-memory rounds and a Fermat
+# inverse), quoted from the "before" column of PERF.md's kernel table
+# (NVIDIA H100 80GB HBM3, 700.00 W), not measured by this script: shown in
+# the kernel phase lines only, under a key that says so, never in the
+# kernels summary line
 QUOTED_EARLIER_MS = {"final_exp_b1": 14.14, "final_exp_b2": 14.15, "fold_g1": 3.25,
                      "fold_g2": 13.09, "miller_product": 12.08, "miller_product_pair": 11.99,
-                     "exp_g1": 4.35, "exp_g2": 16.86}
+                     "exp_g1": 4.35, "exp_g2": 16.86, "transcript_append_fq12": 0.238,
+                     "transcript_round_tail": 0.773}
 PROBE_ITERS = 4096
+PROBE_PERMS = 64
 # the TPU kernel each entry point replaces (PERF.md's kernel table)
 KERNEL_IDS = {"fq_mul": "K0", "miller_product": "K1", "miller_product_pair": "K1",
               "final_exp": "K2", "fold_g1": "K3", "fold_g2": "K3",
@@ -201,22 +218,52 @@ def count_products():
         fq.prod_cols, tower.fq12_sqr = orig, orig_sqr
 
 
-def transcript_imuls(appends, challenge):
-    """32-bit multiplies of one launch of transcript.cu: each append is
-    ceil((4 + 96) / rate) Poseidon permutations and 12 Fq products (the
-    message encode out of Montgomery form); the state converts in and out of
-    Montgomery form with 8 Goldilocks products; the challenge is one more
-    permutation and the Fr chain of 3 + 256 squarings + popcount(r - 2)
-    products."""
+def transcript_perms(appends, challenge):
+    """Poseidon permutations of one launch of transcript.cu: each append is
+    ceil((4 + 96) / rate), the challenge's digest one more."""
+    from sipp_tpu_torch.fields import poseidon as ps
+
+    return appends * -(-(4 + 96) // ps.RATE) + (1 if challenge else 0)
+
+
+def fr_inverse_shifts(a):
+    """k of transcript.cu's fr_inverse on a (canonical, mod r): the shifts
+    of Kaliski's almost-inverse, whose result the Montgomery division
+    takes by 2^k (0 for a = 0, which the kernel returns at once)."""
     from sipp_tpu_torch import params
+
+    if a == 0:
+        return 0
+    k = (a & -a).bit_length() - 1     # v's own trailing zeros first
+    u, v = params.R, a >> k
+    while True:
+        if u == v:
+            return k + 1
+        d = abs(u - v)
+        n = (d & -d).bit_length() - 1
+        if u > v:
+            u = d >> n
+        else:
+            v = d >> n
+        k += n
+
+
+def transcript_imuls(appends, shifts=None):
+    """32-bit multiplies of one launch of transcript.cu: the permutations
+    (x^7 as 4 Goldilocks products), 12 Fq products an append (the message
+    encode out of Montgomery form), 8 Goldilocks products (the state into
+    and out of Montgomery form) and, for K4's challenge (shifts: the k of
+    fr_inverse_shifts on this launch's x; None for K5), the two Fr products
+    that reduce the digest mod r and take it out of Montgomery form and the
+    ceil(k / 32) word rows of the division by 2^k (m and m r each).  The
+    inverse's subtract-and-shift steps make no multiply."""
     from sipp_tpu_torch.fields import poseidon as ps
 
     sboxes = 2 * ps.N_FULL * ps.WIDTH + ps.N_PARTIAL       # x^7: 4 products each
     perm = sboxes * 4 * GL_PRODUCT_IMULS + ps.N_ROUNDS * ps.WIDTH ** 2 * MDS_TERM_IMULS
-    perms = appends * -(-(4 + 96) // ps.RATE) + (1 if challenge else 0)
-    fr_chain = 3 + 256 + bin(params.R - 2).count("1") if challenge else 0
-    return (perms * perm + 8 * GL_PRODUCT_IMULS
-            + (appends * 12 + fr_chain) * FQ_PRODUCT_IMULS)
+    perms = transcript_perms(appends, shifts is not None)
+    fr = 0 if shifts is None else 2 * FQ_PRODUCT_IMULS + -(-shifts // 32) * FR_DIV_ROW_IMULS
+    return perms * perm + 8 * GL_PRODUCT_IMULS + appends * 12 * FQ_PRODUCT_IMULS + fr
 
 
 def probe_products(lib, dev):
@@ -237,6 +284,36 @@ def probe_products(lib, dev):
     torch.cuda.synchronize()
     ok = err == 0 and FQ.decode(res[:16]) == want
     return {"fq_mul": {"cycles_per_product": int(res[16]) / PROBE_ITERS, "value_ok": ok}}
+
+
+def probe_transcript(lib, dev, xs, perms=PROBE_PERMS):
+    """K4/K5's dependent chain alone (transcript.cu transcript_probe_kernel,
+    clock64 on the card): cycles per permutation over `perms` chained
+    permutations of (0, 1, ..., 11) on one warp, and the cycles of the Fr
+    inverse of each value of xs (ints mod r) on lane 0, each result checked
+    on the host."""
+    import torch
+    from sipp_tpu_torch import params
+    from sipp_tpu_torch.fields import poseidon
+
+    limbs = torch.tensor([[(x >> (16 * i)) & 0xFFFF for i in range(16)] for x in xs],
+                         dtype=torch.int64, device=dev).reshape(-1, 16)
+    out = torch.zeros(2 + 17 * len(xs), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for _ in range(2):                               # the first call warms up
+        err = lib.sipp_transcript_probe(limbs.data_ptr(), len(xs), out.data_ptr(), perms,
+                                        stream)
+    torch.cuda.synchronize()
+    out = out.tolist()
+    s = list(range(poseidon.WIDTH))
+    for _ in range(perms):
+        s = poseidon.permute(s)
+    invs = [sum(v << (16 * i) for i, v in enumerate(out[3 + 17 * j:19 + 17 * j]))
+            for j in range(len(xs))]
+    ok = (err == 0 and out[1] % 2**64 == s[0]
+          and invs == [pow(x, params.R - 2, params.R) for x in xs])
+    return {"cycles_per_permutation": out[0] / perms if perms else None,
+            "inverse_cycles": out[2::17], "value_ok": ok}
 
 
 def idle_share(fn):
@@ -313,6 +390,20 @@ def main():
               capture_output=True, text=True, check=True).stdout.split()[0], "card": smi})
     if not all(m["value_ok"] for m in probe.values()):
         raise SystemExit("the Fq product probe computed a wrong value")
+    # K4/K5's latency floor: their chain of permutations (and K4's inverse,
+    # probed on each K4 case's own challenge below) at the probe's cycles
+    # and the maximum SM clock, with no launch, load, encode or store; the
+    # inverse also on a full-width value, a SHA-256 digest mod r
+    probe_x = int.from_bytes(hashlib.sha256(b"fr_inverse").digest(), "little") % params.R
+    tr_probe = probe_transcript(_build.cuda_library(), dev, [probe_x])
+    perm_ms = tr_probe["cycles_per_permutation"] / (sm_mhz * 1e3)
+    emit({"phase": "transcript_probe", "perms": PROBE_PERMS, **tr_probe,
+          "inverse_of": "sha256(b'fr_inverse') mod r",
+          "inverse_shifts": fr_inverse_shifts(probe_x),
+          "latency_floor_ms_k5": transcript_perms(1, False) * perm_ms,
+          "sm_max_mhz": sm_mhz, "card": smi})
+    if not tr_probe["value_ok"]:
+        raise SystemExit("the transcript probe computed a wrong value")
 
     t0 = time.time()
     a, b = random_instance(N, seed=SEED, device=dev)
@@ -389,11 +480,12 @@ def main():
     xinvbits = scalar_to_bits(pow(fold_x, -1, params.R))
 
     # K4/K5 inputs from the n = 128 run: the state after the point prologue,
-    # Z, the state after Z, and the first round's (Z_L, Z_R)
+    # Z and the state after Z (each round's state and (Z_L, Z_R) follow the
+    # on-chip proof below); and a state whose words are 0 and p - 1
     z128 = fexp.final_exp(f_one[None])[0]
-    zs128 = fexp.final_exp(f_two)
     state0 = FGL.encode(prover.prologue(a, b).state, dev)
     state1 = transcript.transcript_append_fq12(state0, z128)
+    state_edge = FGL.encode([0, params.GOLDILOCKS_P - 1, params.GOLDILOCKS_P - 1, 0], dev)
 
     # K6 inputs: MSM-finals bits of seeded challenges at 128 lanes with zero
     # offsets (the verifier's call); and 100 lanes with infinity x lanes,
@@ -473,6 +565,14 @@ def main():
 
     proof_k8 = sipp_prove_onchip(a, b)
     rows_k8 = z_rows(challenges(proof_k8))
+    # K4 inputs: every round's (state, Z_L, Z_R) of that on-chip run, the
+    # states chained as the prover chains them
+    tail_inputs, st = [], state1
+    for k in range(LOGN):
+        zl, zr = proof_k8[2 * LOGN - 1 - 2 * k], proof_k8[2 * LOGN - 2 - 2 * k]
+        tail_inputs.append((st, zl, zr))
+        st = transcript.transcript_round_tail(st, zl, zr)[0]
+    tail_inputs.append((state_edge, *tail_inputs[0][1:]))
     k8_x = torch.stack([proof_k8[i] for i, _ in rows_k8])
     k8_one = tower.fq12_one((len(rows_k8),), dev).contiguous()
     k8_bits = bits_of([e for _, e in rows_k8])
@@ -508,7 +608,16 @@ def main():
     zeros_a, zeros_b = torch.zeros_like(a), torch.zeros_like(b)
     k6_g1 = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:117")
     k6_g2 = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:128")
-    k45 = "sipp_tpu/ops/pallas_transcript.py:"
+    k4_src = ("transcript.cu", "sipp_tpu/ops/pallas_transcript.py:302")
+    k5_src = ("transcript.cu", "sipp_tpu/ops/pallas_transcript.py:269")
+
+    def k4(st, zl, zr):
+        return (lambda: transcript.transcript_round_tail(st, zl, zr),
+                lambda: transcript.transcript_round_tail_plain(st, zl, zr), (st, zl, zr))
+
+    def k5(st, z):
+        return (lambda: transcript.transcript_append_fq12(st, z),
+                lambda: transcript.transcript_append_fq12_plain(st, z), (st, z))
     k7_src = ("miller.cu", "sipp_tpu/ops/pallas_miller.py:364")
     k8_src = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:173")
     k0_src = ("fq.cu", "sipp_tpu/ops/pallas_fq.py:33")
@@ -547,13 +656,13 @@ def main():
         ("fold_g2_n64", "fold_g2", *k3_g2, *k3("g2", 64, xinvbits)),
         ("fold_g1_n1", "fold_g1", *k3_g1, *k3("g1", 1, xbits)),
         ("fold_g2_n1", "fold_g2", *k3_g2, *k3("g2", 1, xinvbits)),
-        ("transcript_append_fq12", "transcript_append_fq12", "transcript.cu", k45 + "269",
-         lambda: transcript.transcript_append_fq12(state0, z128),
-         lambda: transcript.transcript_append_fq12_plain(state0, z128), (state0, z128)),
-        ("transcript_round_tail", "transcript_round_tail", "transcript.cu", k45 + "302",
-         lambda: transcript.transcript_round_tail(state1, zs128[0], zs128[1]),
-         lambda: transcript.transcript_round_tail_plain(state1, zs128[0], zs128[1]),
-         (state1, zs128)),
+        ("transcript_append_fq12", "transcript_append_fq12", *k5_src, *k5(state0, z128)),
+        ("transcript_append_fq12_edge", "transcript_append_fq12", *k5_src,
+         *k5(state_edge, z128)),
+        *((f"transcript_append_fq12_r{k}", "transcript_append_fq12", *k5_src, *k5(st, zl))
+          for k, (st, zl, _) in enumerate(tail_inputs[:LOGN])),
+        *((f"transcript_round_tail{'' if k == 0 else '_edge' if k == LOGN else f'_r{k}'}",
+           "transcript_round_tail", *k4_src, *k4(*args)) for k, args in enumerate(tail_inputs)),
         ("exp_g1", "exp_g1", *k6_g1, *k6(exp.exp_g1, exp.exp_g1_plain, a, zeros_a, msm_a)),
         ("exp_g2", "exp_g2", *k6_g2, *k6(exp.exp_g2, exp.exp_g2_plain, b, zeros_b, msm_b)),
         ("exp_g1_edge_n100", "exp_g1", *k6_g1,
@@ -572,8 +681,6 @@ def main():
                "exp_g1_edge_n100": k6_skipped(ex1, edge_bits),
                "exp_g2_edge_n100": 3 * k6_skipped(ex2, edge_bits),
                "fq12_exp_n14": k8_skipped(k8_bits), "fq12_exp_edge_n100": k8_skipped(e8_bits)}
-    own_imuls = {"transcript_append_fq12": transcript_imuls(1, False),
-                 "transcript_round_tail": transcript_imuls(2, True)}
     table = {}
     for name, counter, src, replaces, kern, plain, inputs in cases:
         got = kern()
@@ -581,8 +688,21 @@ def main():
         err = max(int((g - w).abs().max()) for g, w in zip(tensors(got), tensors(want)))
         ok = all(g.shape == w.shape for g, w in zip(tensors(got), tensors(want))) and err == 0
         k_ms = kernel_ms(kern)
-        if name in own_imuls:
-            imuls = own_imuls[name]
+        extra = ({"earlier_ms_quoted_from_perf_md": QUOTED_EARLIER_MS[name]}
+                 if name in QUOTED_EARLIER_MS else {})
+        if counter == "transcript_append_fq12":
+            imuls = transcript_imuls(1)
+            extra["latency_floor_ms"] = transcript_perms(1, False) * perm_ms
+        elif counter == "transcript_round_tail":
+            # this case's challenge: its inverse's shifts and probed cycles
+            xc = sum(int(v) << (16 * i) for i, v in enumerate(want[1].tolist()))
+            shifts = fr_inverse_shifts(xc)
+            imuls = transcript_imuls(2, shifts)
+            inv = probe_transcript(_build.cuda_library(), dev, [xc], perms=0)
+            ok = ok and inv["value_ok"]
+            extra.update(inverse_shifts=shifts, inverse_cycles=inv["inverse_cycles"][0],
+                         latency_floor_ms=transcript_perms(2, True) * perm_ms
+                         + inv["inverse_cycles"][0] / (sm_mhz * 1e3))
         else:
             # the kernels square an Fq12 with bn254.cuh's complex squaring
             sqr_saved = (FQ12_MUL_PRODUCTS - FQ12_SQR_PRODUCTS) * products.get("fq12_sqr", 0)
@@ -594,10 +714,8 @@ def main():
                        "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
                        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                        "library_ms": None}
-        earlier = ({"earlier_ms_quoted_from_perf_md": QUOTED_EARLIER_MS[name]}
-                   if name in QUOTED_EARLIER_MS else {})
         emit({"phase": "kernel", "name": name, "shape": [list(t.shape) for t in tensors(got)],
-              "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms, **earlier,
+              "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms, **extra,
               "plain_ms": p_ms, "plain_products": products, "imul": imuls,
               "bound_ms": table[name]["bound_ms"]})
         if not ok:
@@ -655,6 +773,24 @@ def main():
           "bit_equal": q_ok, "tolerance": 0})
     if not q_ok:
         raise SystemExit("the digest -> challenge step disagrees with the plain version")
+
+    # K4's Fr inverse alone on edge values (0, 1, 2, r - 1, r - 2, steps that
+    # shift by 32 bits and more) and seeded ones
+    R = params.R
+    u1 = R * pow(3, -1, 2**32) % 2**32
+    inv_x = [0, 1, 2, R - 1, R - 2, 1 << 253, R - (1 << 40), R - 2 * u1] + \
+        [int.from_bytes(rng.bytes(32), "little") % R for _ in range(24)]
+    inv_in = torch.tensor([[(x >> (16 * i)) & 0xFFFF for i in range(16)] for x in inv_x])
+    inv_got = transcript.fr_inverse_limbs(inv_in.to(dev)).cpu()
+    inv_ok = torch.equal(inv_got, transcript.fr_inverse_limbs(inv_in)) and \
+        [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in inv_got] == \
+        [pow(x, R - 2, R) for x in inv_x]
+    one_x = inv_in[-1:].to(dev)
+    emit({"phase": "kernel_quirk", "name": "fr_inverse", "values": len(inv_x),
+          "bit_equal": inv_ok, "tolerance": 0,
+          "ms_one_value": kernel_ms(lambda: transcript.fr_inverse_limbs(one_x))})
+    if not inv_ok:
+        raise SystemExit("the Fr inverse disagrees with Fermat")
 
     # ------------------------------------------------------ 3. aggregation
     z = ate.inner_product(a, b)

@@ -129,7 +129,7 @@ def transcript_header() -> str:
     """Constants of the transcript kernels: Goldilocks (canonical u64, with
     2^80 mod p and its inverse for the (4, 5) Montgomery state format), the
     Poseidon tables of fields/poseidon.py, and r in 8 x 32-bit words with
-    N' = -r^-1 mod 2^32, R^2 mod r, R mod r and r - 2 (R = 2^256)."""
+    N' = -r^-1 mod 2^32 and R^2 mod r (R = 2^256)."""
     from .. import params
     from ..fields import poseidon
 
@@ -148,8 +148,6 @@ def transcript_header() -> str:
     lines += [f"#define FR_P{i} 0x{w:08x}u" for i, w in enumerate(_words(R))]
     text = "\n".join(lines) + "\n"
     text += _arr("FR_R2", "uint32_t", "[8]", _words((1 << 512) % R))
-    text += _arr("FR_ONE", "uint32_t", "[8]", _words((1 << 256) % R))
-    text += _arr("FR_RM2", "uint32_t", "[8]", _words(R - 2))
     text += _arr("PSD_RC", "uint64_t", f"[{poseidon.N_ROUNDS * poseidon.WIDTH}]",
                  [c for row in poseidon.ROUND_CONSTANTS for c in row])
     text += _arr("PSD_MDS", "uint32_t", f"[{poseidon.WIDTH ** 2}]",
@@ -295,6 +293,8 @@ def cuda_library():
         "sipp_transcript_append_fq12": [vp, vp, vp, vp],
         "sipp_transcript_round_tail": [vp, vp, vp, vp, vp, vp, vp],
         "sipp_digest_to_challenge": [vp, vp, ci, vp],
+        "sipp_fr_inverse": [vp, vp, ci, vp],
+        "sipp_transcript_probe": [vp, ci, vp, ci, vp],
         "sipp_exp_g1": [vp, vp, vp, vp, ci, vp],
         "sipp_exp_g2": [vp, vp, vp, vp, ci, vp],
         "sipp_fq12_exp": [vp, vp, vp, vp, ci, vp],

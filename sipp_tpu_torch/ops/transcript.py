@@ -98,5 +98,23 @@ def digest_to_challenge_limbs(canon):
     return out
 
 
+def fr_inverse_limbs(x):
+    """(n, 16) canonical Fr limbs -> (n, 16) limbs of their inverses (0 maps
+    to 0): K4's inverse (a __device__ function of csrc/transcript.cu) on
+    its own, for tests of its edge values.  Not on the prover's path; not
+    counted."""
+    if x.dim() != 2 or x.shape[1] != 16:
+        raise ValueError(f"expected (n, 16) Fr limbs, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return td.fr_inverse(x)
+    x = _build.check_cuda_input(x, "x", (16,))
+    lib = _build.cuda_library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.sipp_fr_inverse(x.data_ptr(), out.data_ptr(), x.shape[0], _stream(x))
+    _build.check_launch(lib, err, "fr_inverse")
+    return out
+
+
 transcript_append_fq12.launches = 0
 transcript_round_tail.launches = 0

@@ -1,12 +1,14 @@
-// Host emulation of the CUDA built-ins that the K1-K3 and K6 device code
-// uses, so that g++ compiles sipp_tpu_torch/csrc/{miller,fexp,fold,exp}.cu's
+// Host emulation of the CUDA built-ins that the K1-K6 device code uses, so
+// that g++ compiles sipp_tpu_torch/csrc/{miller,fexp,fold,exp,transcript}.cu's
 // kernels for the CPU: a block runs as host threads, __syncwarp /
-// __syncthreads are barriers of the warp's / block's threads, __shared__
-// variables are statics, and bn254.cuh's carry flag is emulated (its #else
-// branch).
+// __syncthreads are barriers of the warp's / block's threads, __shfl_sync and
+// __shfl_xor_sync are a per-warp exchange buffer between two warp barriers,
+// __shared__ variables are statics, and bn254.cuh's carry flag is emulated
+// (its #else branch).
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <cstring>
 #include <ctime>
 #include <functional>
 #include <thread>
@@ -20,6 +22,30 @@ static std::barrier<>* g_block_barrier;
 inline void __syncwarp(unsigned = 0xffffffffu) { g_warp_barrier[threadIdx.x / 32]->arrive_and_wait(); }
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 inline long long clock64() { return (long long)clock(); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+
+// Every lane of the warp writes its value, then reads lane src's (within
+// its width-lane segment); the second barrier keeps the buffer until all
+// have read.
+static unsigned long long g_shfl[32][32];
+template <class T>
+inline T __shfl_sync(unsigned, T var, int src, int width = 32) {
+    static_assert(sizeof(T) <= sizeof(unsigned long long));
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    unsigned long long bits = 0;
+    std::memcpy(&bits, &var, sizeof(T));
+    g_shfl[warp][lane] = bits;
+    __syncwarp();
+    bits = g_shfl[warp][(lane & ~(width - 1)) + (src & (width - 1))];
+    __syncwarp();
+    std::memcpy(&var, &bits, sizeof(T));
+    return var;
+}
+
+template <class T>
+inline T __shfl_xor_sync(unsigned mask, T var, int lane_mask, int width = 32) {
+    return __shfl_sync(mask, var, (threadIdx.x % 32) ^ lane_mask, width);
+}
 
 #define __device__
 #define __constant__

@@ -1,5 +1,5 @@
-// Runs the kernels' device code (miller.cu, fexp.cu, fold.cu, exp.cu) and
-// bn254.cuh's Fq arithmetic on the CPU: see sim.h.
+// Runs the kernels' device code (miller.cu, fexp.cu, fold.cu, exp.cu,
+// transcript.cu) and bn254.cuh's Fq arithmetic on the CPU: see sim.h.
 //
 //   sim fq N in out           N pairs (a, b) of 16-limb Fq -> a*b, a+b, a-b, 1/a
 //   sim fold_g1 N in out      lo, hi (N, 2, 16), bits (254,) -> (N, 2, 16)
@@ -9,8 +9,15 @@
 //   sim fexp N in out         f (N, 2, 3, 2, 16) -> (N, 2, 3, 2, 16)
 //   sim miller N in out       p (N, 2, 16), q (N, 2, 2, 16) -> (2, 3, 2, 16)
 //   sim miller_pair N in out  the same -> (2, 2, 3, 2, 16)
+//   sim round N in out        N cases of a full flag, 12 u64 words x and 12
+//                             canonical constants c -> one round, canonical
+//   sim permute N in out      N states of 12 canonical u64 -> permuted
+//   sim append N in out       N cases of state (4, 5), f (2, 3, 2, 16) -> (4, 5)
+//   sim round_tail N in out   N cases of state, zl, zr -> state (4, 5), x, x^-1 (16,)
+//   sim fr_inv N in out       N canonical Fr (16,) -> their inverses
 //
-// in and out hold int64 limbs, C order, in the port's format.
+// in and out hold int64 limbs (round, permute: u64 words), C order, in the
+// port's format.
 #include "sim.h"
 
 #include <cstdio>
@@ -21,6 +28,7 @@
 #include "fexp.cu"
 #include "fold.cu"
 #include "miller.cu"
+#include "transcript.cu"
 
 int main(int argc, char** argv) {
     if (argc != 5) return 2;
@@ -42,6 +50,54 @@ int main(int argc, char** argv) {
             fq_sub(r[2], a, b);
             fq_inv(r[3], a);
             for (int k = 0; k < 4; k++) fq_store(&out[64 * i + 16 * k], r[k]);
+        }
+    } else if (!strcmp(mode, "round")) {
+        out.resize(PSD_W * (size_t)n);
+        for (int i = 0; i < n; i++) {
+            const long long* c = &in[(1 + 2 * PSD_W) * i];
+            run_block(0, TR_THREADS, [&] {
+                __shared__ TrShared s;
+                const int t = threadIdx.x, w = tr_row(t);
+                u32 m[PSD_W];
+                tr_setup(s, m, t);
+                __syncwarp();
+                const u64 x = c[1 + w], k = c[1 + PSD_W + w];
+                const u64 y = c[0] ? tr_round<true>(x, m, k, s.xch[0], t)
+                                   : tr_round<false>(x, m, k, s.xch[0], t);
+                if (t < PSD_W) out[PSD_W * i + t] = (long long)gl_canon(y);
+            });
+        }
+    } else if (!strcmp(mode, "permute")) {
+        out.resize(PSD_W * (size_t)n);
+        for (int i = 0; i < n; i++)
+            run_block(0, TR_THREADS, [&] {
+                __shared__ TrShared s;
+                const int t = threadIdx.x;
+                u32 m[PSD_W];
+                tr_setup(s, m, t);
+                __syncwarp();
+                const u64 x = permute(in[PSD_W * i + tr_row(t)], s, m, t);
+                if (t < PSD_W) out[PSD_W * i + t] = (long long)x;
+            });
+    } else if (!strcmp(mode, "append") || !strcmp(mode, "round_tail")) {
+        const int tail = !strcmp(mode, "round_tail");
+        const size_t in_len = 20 + 192 * (1 + tail), out_len = 20 + 32 * tail;
+        out.resize(out_len * n);
+        for (int i = 0; i < n; i++) {
+            const long long* c = &in[in_len * i];
+            long long* o = &out[out_len * i];
+            run_block(0, TR_THREADS, [&] {
+                transcript_kernel(c, c + 20, tail ? c + 212 : nullptr, o,
+                                  tail ? o + 20 : nullptr, tail ? o + 36 : nullptr);
+            });
+        }
+    } else if (!strcmp(mode, "fr_inv")) {
+        out.resize(16 * (size_t)n);
+        for (int i = 0; i < n; i++) {
+            Fr a, inv;
+            fr_load(a, &in[16 * i]);
+            fr_inverse(inv, a);
+            fr_store(&out[16 * i], inv);
         }
     } else if (!strcmp(mode, "fexp")) {
         out.resize(192 * (size_t)n);

@@ -13,29 +13,37 @@ hostref and the JAX package's own schedule, and the stages against curves'
 dbl and add_mixed, on seeded values.
 
 The last tests compile the kernels' device code itself (csrc/bn254.cuh,
-miller.cu, fold.cu, exp.cu, fexp.cu) with g++ on an emulated carry flag,
-run each block as host threads (tests/host_emulation/sim.h), and hold the
-results against the plain versions.  They need g++ with C++20 and skip
-without it.
+miller.cu, fold.cu, exp.cu, fexp.cu, transcript.cu) with g++ on an emulated
+carry flag, run each block as host threads (tests/host_emulation/sim.h,
+with __shfl_sync as a per-warp exchange buffer), and hold the results
+against the plain versions: K4/K5's permutation against poseidon.permute
+(with the pinned table and with a random one loaded through
+SIPP_POSEIDON_RC_FILE), their appends and round tail against
+transcript_*_plain, their Fr inverse against pow(x, r - 2, r).  They need
+g++ with C++20 and skip without it.
 """
 
+import os
 import pathlib
 import re
 import shutil
 import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from sipp_tpu_torch import hostref, params
+from sipp_tpu_torch import convert, hostref, params
 from sipp_tpu_torch.curves import G1, G2, scalar_to_bits
-from sipp_tpu_torch.fields import FQ, tower
-from sipp_tpu_torch.ops import _build, exp, fexp, fold, miller, schedule
+from sipp_tpu_torch.fields import FGL, FQ, poseidon, tower
+from sipp_tpu_torch.ops import _build, exp, fexp, fold, miller, schedule, transcript
+from sipp_tpu_torch.protocol import transcript_device as td
 from sipp_tpu_torch.pairing import ate
 from sipp_tpu_torch.utils.testing import random_instance
 
 HOST = pathlib.Path(__file__).parent / "host_emulation"
+GOLDEN = pathlib.Path(__file__).parent / "golden" / "torch_port.npz"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -259,16 +267,15 @@ def test_generated_header_holds_the_miller_tables():
 
 # ------------------------------------------ the device code, emulated on the CPU
 
-@pytest.fixture(scope="module")
-def sim(tmp_path_factory):
-    """The emulation binary: g++ on tests/host_emulation/sim_main.cpp with
-    the generated constant headers."""
+def compile_sim(d, transcript_header):
+    """g++ on tests/host_emulation/sim_main.cpp with the generated constant
+    headers, into directory d."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to compile the device code for the CPU")
-    d = tmp_path_factory.mktemp("host_emulation")
     (d / "bn254_params.cuh").write_text(_build.params_header())
     (d / "schedule_params.cuh").write_text(_build.schedule_header())
+    (d / "transcript_params.cuh").write_text(transcript_header)
     exe = d / "sim"
     proc = subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", f"-I{HOST}", f"-I{d}",
                            f"-I{_build.CUDA_SRC}", str(HOST / "sim_main.cpp"), "-o", str(exe)],
@@ -277,6 +284,29 @@ def sim(tmp_path_factory):
         pytest.skip("g++ without C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr
     return d, exe
+
+
+@pytest.fixture(scope="module")
+def sim(tmp_path_factory):
+    """The emulation binary, with the Poseidon table in force."""
+    return compile_sim(tmp_path_factory.mktemp("host_emulation"), _build.transcript_header())
+
+
+@pytest.fixture(scope="module")
+def sim_rc_file(tmp_path_factory):
+    """The emulation binary built with a random round-constant table loaded
+    through SIPP_POSEIDON_RC_FILE (the header generated in a child process,
+    where the hook is read), and that table as the hook reduces it."""
+    d = tmp_path_factory.mktemp("host_emulation_rc")
+    rng = np.random.default_rng(17)
+    table = [int(v) for v in rng.integers(0, 2**64, poseidon.N_ROUNDS * poseidon.WIDTH,
+                                          dtype=np.uint64)]
+    (d / "rc.txt").write_text(" ".join(hex(v) for v in table))
+    child = "from sipp_tpu_torch.ops import _build; print(_build.transcript_header(), end='')"
+    header = subprocess.run([sys.executable, "-c", child], capture_output=True, text=True,
+                            env=dict(os.environ, SIPP_POSEIDON_RC_FILE=str(d / "rc.txt")),
+                            cwd=HOST.parent.parent, check=True, timeout=300).stdout
+    return compile_sim(d, header), [v % poseidon.P for v in table]
 
 
 def run_sim(sim, mode, n, arrays):
@@ -361,3 +391,104 @@ def test_exp_kernel_emulated_matches_plain(sim, group):
     got = run_sim(sim, f"exp_{group}", 9, [x, off, bits]).reshape(x.shape)
     assert torch.equal(got, getattr(exp, f"exp_{group}_plain")(x, off, bits))
     assert bool((got[6] == 0).all())          # -[k]x + [k]x = O
+
+
+def gl_edge_states():
+    """States of 0 and p - 1, and one whose first S-box input is 2^48 under
+    the table in force: its square 2^96 takes the product's borrow (2^96 =
+    -1)."""
+    P, rc = poseidon.P, poseidon.ROUND_CONSTANTS
+    return [[0] * 12, [P - 1] * 12, [0, P - 1] * 6, [P - 1, 0] * 6,
+            [(2**48 - rc[0][0]) % P] + [0] * 11]
+
+
+def test_round_emulated_matches_poseidon_round(sim):
+    """One round of K4/K5's permutation (tr_round: the S-box, the MDS row
+    through shared memory, the next constant in the reduction) on words that
+    the kernel may hold, any u64 standing for its value mod p: the largest
+    ones, an S-box input of 2^48, and a partial round whose row 0 sums carry
+    out of 64 bits (m_01 x_1 with x_1's high half making the high sum -1 mod
+    2^32), against the round of poseidon.permute."""
+    P, M = poseidon.P, poseidon.MDS
+    rng = np.random.default_rng(29)
+    a = (-1 * pow(M[0][1], -1, 2**32)) % 2**32
+    rand = [int(v) for v in rng.integers(0, 2**64, 12, dtype=np.uint64)]
+    cases = [(True, [2**64 - 1] * 12, [P - 1] * 12), (False, [2**64 - 1] * 12, [P - 1] * 12),
+             (True, [2**48] + rand[1:], [0] * 12),
+             (False, [0, a << 32 | 0xFFFFFFFF] + [0] * 10, [0] * 12),
+             (True, rand, [v % P for v in rand[::-1]]), (False, rand, [0] * 12)]
+    words = np.array([[int(full)] + x + c for full, x, c in cases], dtype=np.uint64)
+    got = run_sim(sim, "round", len(cases), [words.view(np.int64)]).numpy().view(np.uint64)
+    for (full, x, c), row in zip(cases, got.reshape(-1, 12)):
+        y = [poseidon._sbox(v % P) if full or j == 0 else v % P for j, v in enumerate(x)]
+        want = [(sum(M[t][j] * y[j] for j in range(12)) + c[t]) % P for t in range(12)]
+        assert [int(v) for v in row] == want
+
+
+@pytest.mark.parametrize("table", ["pinned", "rc_file"])
+def test_permute_emulated_matches_poseidon(request, monkeypatch, table):
+    """K4/K5's permutation (one warp: shuffled state words, lazy MDS sums,
+    constants added in the reduction) against poseidon.permute, with the
+    pinned table and with a random one read through SIPP_POSEIDON_RC_FILE,
+    on edge states and seeded ones."""
+    if table == "pinned":
+        exe = request.getfixturevalue("sim")
+    else:
+        exe, flat = request.getfixturevalue("sim_rc_file")
+        w = poseidon.WIDTH
+        monkeypatch.setattr(poseidon, "ROUND_CONSTANTS",
+                            [flat[w * r:w * (r + 1)] for r in range(poseidon.N_ROUNDS)])
+    rng = np.random.default_rng(19)
+    states = gl_edge_states() + [[int(v) % poseidon.P for v in rng.integers(0, 2**64, 12,
+                                                                         dtype=np.uint64)]
+                               for _ in range(4)]
+    words = np.array(states, dtype=np.uint64).view(np.int64)
+    got = run_sim(exe, "permute", len(states), [words]).numpy().view(np.uint64).reshape(-1, 12)
+    assert [[int(v) for v in row] for row in got] == [poseidon.permute(s) for s in states]
+
+
+@pytest.fixture(scope="module")
+def transcript_inputs():
+    """The golden state and Fq12 values of tests/test_torch_transcript.py,
+    and a state whose words are 0 and p - 1."""
+    with np.load(GOLDEN) as g:
+        gold = {k: convert.from_reference(g[k], device="cpu") for k in ("td_state", "td_f1",
+                                                                        "td_f2")}
+    edge = FGL.encode([0, poseidon.P - 1, poseidon.P - 1, 0])
+    return [(gold["td_state"], gold["td_f1"], gold["td_f2"]), (edge, gold["td_f2"], gold["td_f1"])]
+
+
+@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("mode", ["append", "round_tail"])
+def test_transcript_kernel_emulated_matches_plain(sim, transcript_inputs, mode, case):
+    """K5's and K4's device code (the message encode, the appends, the
+    digest, the challenge and its inverse) against transcript_*_plain."""
+    state, f1, f2 = transcript_inputs[case]
+    if mode == "append":
+        got = run_sim(sim, mode, 1, [state, f1])
+        assert torch.equal(got.reshape(4, 5), transcript.transcript_append_fq12_plain(state, f1))
+        return
+    got = run_sim(sim, mode, 1, [state, f1, f2])
+    st, x, xinv = transcript.transcript_round_tail_plain(state, f1, f2)
+    assert torch.equal(got[:20].reshape(4, 5), st)
+    assert torch.equal(got[20:36], x)
+    assert torch.equal(got[36:], xinv)
+
+
+def test_fr_inverse_emulated_matches_fermat(sim):
+    """K4's binary extended Euclid on 0, 1, 2, r - 1, r - 2, values whose
+    steps shift by 32 bits and more, and seeded values, against
+    pow(x, r - 2, r) and the plain version's Fermat chain."""
+    rng = np.random.default_rng(23)
+    R = params.R
+    # 2^253 and r - 2^40 shift out 253 and 40 zeros at once; with u1 = r / 3
+    # mod 2^32, r - 2 u1 leaves u = u1 after one step and then v - u = r - 3 u1
+    # = 0 mod 2^32, so the result's cofactor shifts by 32 bits and more
+    u1 = R * pow(3, -1, 2**32) % 2**32
+    xs = [0, 1, 2, R - 1, R - 2, 1 << 253, R - (1 << 40), R - 2 * u1] + \
+        [int.from_bytes(rng.bytes(32), "little") % R for _ in range(40)]
+    limbs = torch.tensor([[(x >> (16 * i)) & 0xFFFF for i in range(16)] for x in xs])
+    got = run_sim(sim, "fr_inv", len(xs), [limbs]).reshape(-1, 16)
+    assert [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in got] == \
+        [pow(x, R - 2, R) for x in xs]
+    assert torch.equal(got, td.fr_inverse(limbs))

@@ -93,6 +93,18 @@ def test_digest_quirk_matches_host(digest):
     assert torch.equal(transcript.digest_to_challenge_limbs(canon[None])[0], limbs)
 
 
+def test_fr_inverse_limbs_on_cpu_is_fermat():
+    """The test entry of K4's inverse on CPU tensors: the plain Fermat
+    chain, 0 -> 0; other shapes are refused."""
+    xs = [0, 1, 2, params.R - 1, 0x1234_5678_9ABC_DEF0 << 100]
+    limbs = torch.tensor([[(x >> (16 * i)) & 0xFFFF for i in range(16)] for x in xs])
+    got = transcript.fr_inverse_limbs(limbs)
+    assert [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in got] == \
+        [pow(x, params.R - 2, params.R) for x in xs]
+    with pytest.raises(ValueError):
+        transcript.fr_inverse_limbs(limbs[0])
+
+
 def test_device_chain_matches_native():
     """append_g1 / append_g2 / append_fq12 and get_challenge on the device
     == the repo's C++ chain on the host."""
