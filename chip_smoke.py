@@ -34,7 +34,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      SM clock, no launch, load or store);
   2. each kernel against its plain PyTorch version on the same card inputs,
      at the paths' shapes (bit equality: tolerance 0, every value is a
-     canonical field element), with both times and the kernel's bound; K1
+     canonical field element), with both times and the kernel's bound (the
+     kernel's time twice: ms, CUDA events around each wrapper call, host
+     work included, as every earlier run measured it; and device_ms, 20
+     launches queued behind a sleep, the device's own time); K1
      also with infinity lanes, at padded widths (6 lanes), over 33 blocks
      (130 lanes), and in pair mode at the fold rounds' 128, 64 and 2 lanes;
      K5 on Z of the n = 128 run and on each of its 7 rounds' (state, Z_L),
@@ -47,10 +50,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      32 bits and more, and seeded values; K7 for digits
      0, 1 and 2 on a carry three digits into the loop, and with infinity
      lanes; K8 at the verifier's 14 rows of a proof with their challenge
-     bits, and at 100 lanes with all-zero bits, offsets of one and x = 1;
+     bits, on 14 seeded lanes off the cyclotomic subgroup (a forged proof's
+     rows) with the same bits, and at 100 lanes with all-zero bits, offsets
+     of one and x = 1;
      K0 at 4096 and 1000 elements; K3 at 128 lanes (dead lanes, a dead lo
      under a live hi, a dead hi under a live lo) and at the fold rounds'
-     64 and 1 lanes.  K1's, K2's, K3's, K4's, K5's and K6's lines carry the
+     64 and 1 lanes.  K1's to K8's lines carry the
      time of the same case before their redesign, quoted from PERF.md's
      kernel table and not measured here, as earlier_ms_quoted_from_perf_md
      beside ms (the kernels summary line carries measured numbers only);
@@ -73,7 +78,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   5. path D, counted the same way: the digest again, its steady time, the
      proof of path A byte for byte and path A's statement; one Miller loop's
      65 K7 launches and tail under set_sync_debug_mode("error"); the split
-     of an aggregation into K7 steps, plain tail, plain tree and K2;
+     of an aggregation into K7 steps (one loop's 65 launches, by CUDA events
+     and by host clock, and queued behind a sleep for the device's own
+     time: the host may set the pace of 65 small launches),
+     plain tail, plain tree and K2;
   6. path E, counted: path C's statement, the tampered proof rejected, the
      n = 4 golden proof and statement; the transcript's and the Z' chain's
      times against the C++ library's;
@@ -86,13 +94,17 @@ A kernel's bound is the larger of its bytes (inputs read once, outputs
 written once, over 3.35 TB/s) and its operations as 32-bit multiply
 instructions (a 32 x 32 -> 64-bit word product is two: its low and high
 halves) over the card's rate of 132 SMs x 64 a clock x the maximum SM clock.
-For K0-K3 and K6-K8 the operations are the Fq products that the plain
+For K0-K3, K6 and K7 the operations are the Fq products that the plain
 version computes on the same inputs (counted while it runs; for K6 less the
-additions that this run's bits and infinity lanes skip, for K8 less the
-multiplies its zero bits skip; each Fq12 squaring, which the plain version
-computes as a multiply of 54 products, counted at the kernels' 36), 256
-multiplies for an 8-word Montgomery product.  For K4 and K5 they are the
-multiplies that the function needs (transcript_imuls: the permutations on
+additions that this run's bits and infinity lanes skip; each Fq12 squaring,
+which the plain version computes as a multiply of 54 products, counted at
+the kernels' 36), 256 multiplies for an 8-word Montgomery product.  For K8
+they are the Fq products of the chain the kernel runs on each lane's own
+bits (its fixed window of exp.cu's FQ12_EXP_WINDOW bits: the window's
+powers of x, the squarings once the power is no longer 1, a multiply for
+each non-zero window and one for the offset; a squaring at 36, a multiply
+at 54), against the ~127 multiplies of the plain square-and-multiply.  For
+K4 and K5 they are the multiplies that the function needs (transcript_imuls: the permutations on
 u64 Goldilocks, the message encode, and for K4's challenge two Fr products
 and the word rows of the inverse's Montgomery division by 2^k, k counted
 on this run's challenge by the host's model of the kernel's binary
@@ -113,6 +125,7 @@ import io
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -136,19 +149,23 @@ GL_PRODUCT_IMULS = 8    # Goldilocks 64 x 64 -> 128 bits: 4 word products; the
 MDS_TERM_IMULS = 4      # an MDS entry (< 2^32) times a u64: 2 word products
 FR_DIV_ROW_IMULS = 17   # a word row of a Montgomery division: m, then m r
 FQ12_MUL_PRODUCTS = 54  # Fq products of one Fq12 multiply
-FQ12_SQR_PRODUCTS = 36  # of one complex squaring (bn254.cuh); the plain
-#                         tower.fq12_sqr multiplies, 54
-# The redesigned kernels' times before their last redesign (K1, K2, K3, K6:
-# one thread per element or lane; K4, K5: shared-memory rounds and a Fermat
-# inverse), quoted from the "before" column of PERF.md's kernel table
+FQ12_SQR_PRODUCTS = 36  # of one complex squaring (K1's and K7's table);
+#                         the plain tower.fq12_sqr multiplies, 54
+# The redesigned kernels' times before their last redesign (K1, K2, K3, K6,
+# K7, K8: one thread per element or lane; K4, K5: shared-memory rounds and a
+# Fermat inverse), quoted from the "before" column of PERF.md's kernel table
 # (NVIDIA H100 80GB HBM3, 700.00 W), not measured by this script: shown in
 # the kernel phase lines only, under a key that says so, never in the
 # kernels summary line
 QUOTED_EARLIER_MS = {"final_exp_b1": 14.14, "final_exp_b2": 14.15, "fold_g1": 3.25,
                      "fold_g2": 13.09, "miller_product": 12.08, "miller_product_pair": 11.99,
                      "exp_g1": 4.35, "exp_g2": 16.86, "transcript_append_fq12": 0.238,
-                     "transcript_round_tail": 0.773}
+                     "transcript_round_tail": 0.773, "miller_step_d0": 0.1021,
+                     "miller_step_d1": 0.1580, "miller_step_d2": 0.1580,
+                     "miller_step_inf_d1": 0.1580, "miller_step_inf_d2": 0.1580,
+                     "fq12_exp_n14": 17.09, "fq12_exp_edge_n100": 17.18}
 PROBE_ITERS = 4096
+SLEEP_MS = 50           # device_ms's head start over the host's enqueue
 PROBE_PERMS = 64
 # the TPU kernel each entry point replaces (PERF.md's kernel table)
 KERNEL_IDS = {"fq_mul": "K0", "miller_product": "K1", "miller_product_pair": "K1",
@@ -349,6 +366,44 @@ def idle_share(fn):
             "top_ms": dict(by_name.most_common(6))}
 
 
+def kernel_ms(fn, reps=9):
+    """The median over reps launches, each between two CUDA events, after
+    a warm-up: a latency-bound kernel's time moves by some percent from
+    launch to launch, and one slow launch should not move the reading."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def device_ms(fn, sleep_cycles, reps=20):
+    """The device's own time per launch: reps launches queued behind a
+    sleep on the stream, between two CUDA events, so that each launch's
+    host work (the Python wrapper, which kernel_ms's events bracket)
+    overlaps the launches before it.  A short kernel's kernel_ms is
+    mostly that host work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def main():
     import torch
 
@@ -372,6 +427,7 @@ def main():
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.split()[0])
     imul_per_s = 132 * 64 * sm_mhz * 1e6
+    sleep_cycles = int(SLEEP_MS * sm_mhz * 1e3)   # at most SLEEP_MS of spin
 
     # ---------------------------------------------------------- 1. device
     t0 = time.time()
@@ -410,21 +466,6 @@ def main():
     emit({"phase": "instance", "n": N, "seed": SEED, "host_s": time.time() - t0})
 
     # ------------------------------------- 2. kernels against plain versions
-    def kernel_ms(fn, reps=9):
-        """The median over reps launches, each between two CUDA events, after
-        a warm-up: a latency-bound kernel's time moves by some percent from
-        launch to launch, and one slow launch should not move the reading."""
-        fn()
-        torch.cuda.synchronize()
-        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                  for _ in range(reps)]
-        for start, end in events:
-            start.record()
-            fn()
-            end.record()
-        torch.cuda.synchronize()
-        return statistics.median(start.elapsed_time(end) for start, end in events)
-
     def plain_ms(fn):
         torch.cuda.synchronize()
         with count_products() as counts:
@@ -584,19 +625,36 @@ def main():
                                   for e in range(k)]).to(dev)
 
     e8_x, e8_off, e8_bits = fq12_values(E), fq12_values(E), edge_bits.clone()
-    bits0, off_one, x_one = [4, 53, 96], [5, 54, 95], [6, 55, 94]
+    bits0, off_one, x_one, off_zero = [4, 53, 96], [5, 54, 95], [6, 55, 94], [7, 56, 93]
     e8_bits[:, bits0] = 0
     e8_off[off_one] = tower.fq12_one((), dev)
     e8_x[x_one] = tower.fq12_one((), dev)
+    e8_off[off_zero] = 0
+    k8_forged = fq12_values(len(rows_k8))       # rows off the cyclotomic subgroup
+    if any(torch.equal(c, q) for c, q in zip(tower.fq12_cyclo_sqr(k8_forged),
+                                              tower.fq12_sqr(k8_forged))):
+        raise SystemExit("a forged K8 row lies in the cyclotomic subgroup")
 
     def k8(x, off, bits):
         return (lambda: exp.fq12_exp(x, off, bits), lambda: exp.fq12_exp_plain(x, off, bits),
                 (x, off, bits))
 
-    def k8_skipped(bits):
-        """Fq products of the multiplies by x that the kernel skips: every
-        zero bit of every lane."""
-        return FQ12_MUL_PRODUCTS * int((bits == 0).sum())
+    k8_window = int(re.search(r"#define FQ12_EXP_WINDOW (\d+)", (
+        pathlib.Path(exp.__file__).resolve().parent.parent / "csrc" / "exp.cu").read_text())[1])
+
+    def k8_products(bits, w=k8_window):
+        """Fq products of the chain that exp.cu's fq12_exp_kernel runs, on
+        each lane's own bits: x^2 .. x^(2^w - 1) (2^w - 2 multiplies); then,
+        window by window (the first one (254 - 1) % w + 1 bits wide, the
+        others w), w squarings once an earlier window was not 0 and a
+        multiply where this one is not 0; then the offset's multiply."""
+        b = bits.cpu().numpy() != 0
+        edges = [0, *range((len(b) - 1) % w + 1, len(b) + 1, w)]
+        nonzero = np.stack([b[lo:hi].any(0) for lo, hi in zip(edges, edges[1:])])
+        started = np.cumsum(nonzero, 0) - nonzero > 0
+        squarings = int((np.diff(edges)[:, None] * started).sum())
+        multiplies = (2 ** w - 1) * b.shape[1] + int(nonzero.sum())
+        return FQ12_SQR_PRODUCTS * squarings + FQ12_MUL_PRODUCTS * multiplies
 
     # K0 inputs: the entry point's batch and an odd one
     fq_a, fq_b = fq.random_batch(4096, SEED, dev)
@@ -675,12 +733,14 @@ def main():
         ("miller_step_inf_d1", "miller_step", *k7_src, *k7(1, step_inf_args)),
         ("miller_step_inf_d2", "miller_step", *k7_src, *k7(2, step_inf_args)),
         ("fq12_exp_n14", "fq12_exp", *k8_src, *k8(k8_x, k8_one, k8_bits)),
+        ("fq12_exp_forged_n14", "fq12_exp", *k8_src, *k8(k8_forged, k8_one, k8_bits)),
         ("fq12_exp_edge_n100", "fq12_exp", *k8_src, *k8(e8_x, e8_off, e8_bits)),
     ]
     skipped = {"exp_g1": k6_skipped(a, msm_a), "exp_g2": 3 * k6_skipped(b, msm_b),
                "exp_g1_edge_n100": k6_skipped(ex1, edge_bits),
-               "exp_g2_edge_n100": 3 * k6_skipped(ex2, edge_bits),
-               "fq12_exp_n14": k8_skipped(k8_bits), "fq12_exp_edge_n100": k8_skipped(e8_bits)}
+               "exp_g2_edge_n100": 3 * k6_skipped(ex2, edge_bits)}
+    chain = {"fq12_exp_n14": k8_products(k8_bits), "fq12_exp_forged_n14": k8_products(k8_bits),
+             "fq12_exp_edge_n100": k8_products(e8_bits)}
     table = {}
     for name, counter, src, replaces, kern, plain, inputs in cases:
         got = kern()
@@ -688,6 +748,7 @@ def main():
         err = max(int((g - w).abs().max()) for g, w in zip(tensors(got), tensors(want)))
         ok = all(g.shape == w.shape for g, w in zip(tensors(got), tensors(want))) and err == 0
         k_ms = kernel_ms(kern)
+        d_ms = device_ms(kern, sleep_cycles)
         extra = ({"earlier_ms_quoted_from_perf_md": QUOTED_EARLIER_MS[name]}
                  if name in QUOTED_EARLIER_MS else {})
         if counter == "transcript_append_fq12":
@@ -703,19 +764,23 @@ def main():
             extra.update(inverse_shifts=shifts, inverse_cycles=inv["inverse_cycles"][0],
                          latency_floor_ms=transcript_perms(2, True) * perm_ms
                          + inv["inverse_cycles"][0] / (sm_mhz * 1e3))
+        elif name in chain:
+            imuls = FQ_PRODUCT_IMULS * chain[name]
         else:
-            # the kernels square an Fq12 with bn254.cuh's complex squaring
+            # an Fq12 squaring needs the complex squaring's products
             sqr_saved = (FQ12_MUL_PRODUCTS - FQ12_SQR_PRODUCTS) * products.get("fq12_sqr", 0)
             imuls = FQ_PRODUCT_IMULS * (products.get(16, 0) - sqr_saved - skipped.get(name, 0))
         nbytes = 8 * sum(t.numel() for t in tensors(inputs) + tensors(got))
         ops_ms, bytes_ms = imuls / imul_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         table[name] = {"name": name, "route": "cuda", "source": f"sipp_tpu_torch/csrc/{src}",
                        "replaces": replaces, "counter": counter, "max_abs_err": err,
-                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(ops_ms, bytes_ms),
+                       "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+                       "bound_ms": max(ops_ms, bytes_ms),
                        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                        "library_ms": None}
         emit({"phase": "kernel", "name": name, "shape": [list(t.shape) for t in tensors(got)],
-              "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms, **extra,
+              "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms,
+              "device_ms": d_ms, **extra,
               "plain_ms": p_ms, "plain_products": products, "imul": imuls,
               "bound_ms": table[name]["bound_ms"]})
         if not ok:
@@ -741,15 +806,17 @@ def main():
         if dec(out[lanes]) != want:
             raise SystemExit("K6 edge lanes differ from offset + [k]x on the host")
 
-    # K8 edge lanes: all-zero bits and x = 1 give the offset back; two lanes
-    # against hostref's off * x^k
+    # K8 edge lanes: all-zero bits and x = 1 give the offset back, off = 0
+    # gives 0; two lanes against hostref's off * x^k
     e8_out = exp.fq12_exp(e8_x, e8_off, e8_bits)
     host_lanes = [0, off_one[0]]
     e8_host = [hostref.fq12_mul(o, hostref.fq12_pow(x, ks[i])) for x, o, i in zip(
         tower.fq12_decode(e8_x[host_lanes]), tower.fq12_decode(e8_off[host_lanes]), host_lanes)]
     if not (torch.equal(e8_out[bits0], e8_off[bits0]) and torch.equal(e8_out[x_one], e8_off[x_one])
+            and bool((e8_out[off_zero] == 0).all())
             and tower.fq12_decode(e8_out[host_lanes]) == e8_host):
-        raise SystemExit("K8 edge lanes differ from the offset or from off * x^k on the host")
+        raise SystemExit("K8 edge lanes differ from the offset, from 0 or from off * x^k "
+                         "on the host")
     # K7 infinity lanes: the tail masks them, so a whole per-step loop over
     # the instance with infinity lanes equals K1's product
     if not torch.equal(ate.product_tree(ate.miller_loop_fused(a_inf, b_inf)),
@@ -957,12 +1024,23 @@ def main():
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         f, t_, qn = ate.miller_start(a, b)
         torch.cuda.synchronize()
+        t = time.time()
         start.record()
         for digit in ate.DIGITS:
             f, t_ = miller.miller_step(digit, b, qn, a, f, t_)
         end.record()
         torch.cuda.synchronize()
-        split = {"k7_steps_ms": start.elapsed_time(end)}
+        split = {"k7_steps_ms": start.elapsed_time(end),
+                 "k7_steps_host_ms": (time.time() - t) * 1e3}
+
+        f0, t0, qn0 = ate.miller_start(a, b)
+        f0 = f0.contiguous()
+
+        def k7_loop():
+            g, u = f0, t0
+            for digit in ate.DIGITS:
+                g, u = miller.miller_step(digit, b, qn0, a, g, u)
+        split["k7_steps_device_ms"] = device_ms(k7_loop, sleep_cycles, reps=3)
         for key, fn in (("tail_ms", lambda v: ate.miller_tail(v, t_, a, b)),
                         ("tree_ms", ate.product_tree),
                         ("k2_ms", lambda v: fexp.final_exp(v[None])[0])):

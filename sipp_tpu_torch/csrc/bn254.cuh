@@ -6,7 +6,7 @@
 // Fq is 8 little-endian 32-bit words in Montgomery form with R = 2^256 (the
 // same R as the 16 x 16-bit reference format, so Montgomery values are equal
 // and only the packing differs).  Every result is fully reduced (< p).
-// Fq2/Fq6/Fq12 follow the reference tower: u^2 = -1, v^3 = xi = 9 + u,
+// Fq2/Fq6/Fq12 (the layouts) follow the reference tower: u^2 = -1, v^3 = xi = 9 + u,
 // w^2 = v.
 //
 // The Fq product is CIOS on PTX carry chains (mad.lo.cc / madc.hi.cc /
@@ -35,8 +35,9 @@
 // Build time: fully inlined BN254 towers make nvcc run for many minutes.
 // fq_mul and the Fq add/sub/select helpers are inline, so their operands
 // stay in registers inside the Fq2 product (three independent products)
-// and in the kernels' split products; the Fq2 product, the inversions and
-// everything at the Fq6/Fq12 level are __noinline__.
+// and in the kernels' split products; the Fq2 product and the inversions
+// are __noinline__.  Fq6/Fq12 arithmetic is not here: the kernels spread
+// each Fq12 operation over a warp as tables (fq12_table.cuh, miller.cu).
 #pragma once
 #include <cstdint>
 
@@ -76,22 +77,24 @@ DEV void fq_store(long long* dst, const Fq& a) {
 DEV void fq2_load(Fq2& a, const long long* src) { fq_load(a.c0, src); fq_load(a.c1, src + 16); }
 DEV void fq2_store(long long* dst, const Fq2& a) { fq_store(dst, a.c0); fq_store(dst + 16, a.c1); }
 
-DEV void fq12_load(Fq12& a, const long long* src) {
-    for (int i = 0; i < 2; i++)
-        for (int j = 0; j < 3; j++) fq2_load(a.c[i].c[j], src + 32 * (3 * i + j));
-}
-DEV void fq12_store(long long* dst, const Fq12& a) {
-    for (int i = 0; i < 2; i++)
-        for (int j = 0; j < 3; j++) fq2_store(dst + 32 * (3 * i + j), a.c[i].c[j]);
-}
-
 // A table of constant memory copied to shared memory by the whole block
-// (the table-driven kernels K1 and K2: the lanes of an operation read
-// different rows, which constant memory serves one address at a time).
+// (the table-driven kernels K1, K2, K7 and K8: the lanes of an operation
+// read different rows, which constant memory serves one address at a
+// time).  A table of whole 32-bit words whose two copies start on a word
+// goes a word a thread (the generated tables that are whole words are
+// 16-byte aligned, and so are the members they fill), any other a byte a
+// thread.  K7 copies K1's 8,868 bytes of tables every launch, where a byte
+// a thread was a large share of a step.
 template <class T>
 static __device__ __forceinline__ void copy_table(T& dst, const T& src) {
-    for (int i = threadIdx.x; i < (int)sizeof(T); i += blockDim.x)
-        reinterpret_cast<char*>(&dst)[i] = reinterpret_cast<const char*>(&src)[i];
+    if (sizeof(T) % 4 == 0 && (((uintptr_t)&dst | (uintptr_t)&src) & 3) == 0) {
+#pragma unroll 4
+        for (int i = threadIdx.x; i < (int)sizeof(T) / 4; i += blockDim.x)
+            reinterpret_cast<u32*>(&dst)[i] = reinterpret_cast<const u32*>(&src)[i];
+    } else {
+        for (int i = threadIdx.x; i < (int)sizeof(T); i += blockDim.x)
+            reinterpret_cast<char*>(&dst)[i] = reinterpret_cast<const char*>(&src)[i];
+    }
 }
 
 // -------------------------------------------------------------------- Fq
@@ -342,75 +345,3 @@ DEV_NOINLINE void fq2_inv(Fq2& r, const Fq2& a) {
     fq_mul(t, a.c1, n);
     fq_neg(r.c1, t);
 }
-
-// ------------------------------------------------------------------- Fq6
-
-DEV_NOINLINE void fq6_add(Fq6& r, const Fq6& a, const Fq6& b) {
-    for (int i = 0; i < 3; i++) fq2_add(r.c[i], a.c[i], b.c[i]);
-}
-DEV_NOINLINE void fq6_sub(Fq6& r, const Fq6& a, const Fq6& b) {
-    for (int i = 0; i < 3; i++) fq2_sub(r.c[i], a.c[i], b.c[i]);
-}
-
-// Karatsuba/Toom over Fq2 (the reference's six products).
-DEV_NOINLINE void fq6_mul(Fq6& r, const Fq6& a, const Fq6& b) {
-    Fq2 v0, v1, v2, x, y, t12, t01, t02;
-    fq2_mul(v0, a.c[0], b.c[0]);
-    fq2_mul(v1, a.c[1], b.c[1]);
-    fq2_mul(v2, a.c[2], b.c[2]);
-    fq2_add(x, a.c[1], a.c[2]); fq2_add(y, b.c[1], b.c[2]); fq2_mul(t12, x, y);
-    fq2_add(x, a.c[0], a.c[1]); fq2_add(y, b.c[0], b.c[1]); fq2_mul(t01, x, y);
-    fq2_add(x, a.c[0], a.c[2]); fq2_add(y, b.c[0], b.c[2]); fq2_mul(t02, x, y);
-    // c0 = v0 + xi (t12 - v1 - v2)
-    fq2_add(x, v1, v2); fq2_sub(x, t12, x); fq2_mul_xi(x, x); fq2_add(r.c[0], v0, x);
-    // c1 = t01 - v0 - v1 + xi v2
-    fq2_add(x, v0, v1); fq2_sub(x, t01, x); fq2_mul_xi(y, v2); fq2_add(r.c[1], x, y);
-    // c2 = t02 - v0 - v2 + v1
-    fq2_add(x, v0, v2); fq2_sub(x, t02, x); fq2_add(r.c[2], x, v1);
-}
-
-// v (c0 + c1 v + c2 v^2) = xi c2 + c0 v + c1 v^2
-DEV_NOINLINE void fq6_mul_by_v(Fq6& r, const Fq6& a) {
-    Fq2 t;
-    fq2_mul_xi(t, a.c[2]);
-    r.c[2] = a.c[1];
-    r.c[1] = a.c[0];
-    r.c[0] = t;
-}
-
-// ------------------------------------------------------------------ Fq12
-
-DEV void fq12_one(Fq12& a) {
-    fq2_one(a.c[0].c[0]);
-    fq2_zero(a.c[0].c[1]); fq2_zero(a.c[0].c[2]);
-    for (int j = 0; j < 3; j++) fq2_zero(a.c[1].c[j]);
-}
-
-DEV_NOINLINE void fq12_mul(Fq12& r, const Fq12& a, const Fq12& b) {
-    Fq6 v0, v1, x, y;
-    fq6_mul(v0, a.c[0], b.c[0]);
-    fq6_mul(v1, a.c[1], b.c[1]);
-    fq6_add(x, a.c[0], a.c[1]);
-    fq6_add(y, b.c[0], b.c[1]);
-    fq6_mul(x, x, y);
-    fq6_add(y, v0, v1);
-    fq6_sub(r.c[1], x, y);
-    fq6_mul_by_v(v1, v1);
-    fq6_add(r.c[0], v0, v1);
-}
-
-// complex squaring: t = c0 c1, u = (c0 + c1)(c0 + v c1);
-// c0' = u - t - v t, c1' = 2t
-DEV_NOINLINE void fq12_sqr(Fq12& r, const Fq12& a) {
-    Fq6 t, u, x, y;
-    fq6_mul(t, a.c[0], a.c[1]);
-    fq6_add(x, a.c[0], a.c[1]);
-    fq6_mul_by_v(y, a.c[1]);
-    fq6_add(y, a.c[0], y);
-    fq6_mul(u, x, y);
-    fq6_mul_by_v(x, t);
-    fq6_add(x, t, x);
-    fq6_sub(r.c[0], u, x);
-    fq6_add(r.c[1], t, t);
-}
-

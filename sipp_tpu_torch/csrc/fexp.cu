@@ -20,7 +20,8 @@
 //   map), then thread q < 6 forms output coefficient q from the products;
 //   the products' inputs and the outputs' linear forms are the tables of
 //   ops/schedule.py (schedule_params.cuh), which the CPU tests evaluate
-//   against fields/tower.py.  An operation costs one Fq2 product (one Fq
+//   against fields/tower.py; fq12_table.cuh's lin_op runs them (K8 runs
+//   the same operations).  An operation costs one Fq2 product (one Fq
 //   product where it is split, below) and one combine pass, where one
 //   thread made 54 (36) Fq products in a row.
 // * each x-power as the TPU kernel's _powx_ref computes it: the 62
@@ -44,20 +45,9 @@
 // The lambda tape stays serial on warp 0, as it is written.
 #include <cuda_runtime.h>
 
-#include "bn254.cuh"
-#include "schedule_params.cuh"
+#include "fq12_table.cuh"
 
 #define FEXP_WARPS 8
-#define SPLIT_MAX 10                      // products split over 3 lanes of a warp
-
-// schedule_params.cuh's tables, copied to shared memory at the start: the
-// lanes of an operation read different rows, which constant memory serves
-// one address at a time
-struct Tables {
-    unsigned char nprod[SCHED_N_OPS], nout[SCHED_N_OPS];
-    unsigned char xmask[SCHED_N_OPS][SCHED_N_PROD], ymask[SCHED_N_OPS][SCHED_N_PROD];
-    signed char terms[SCHED_N_OPS][6][SCHED_MAX_TERMS][3];
-};
 
 struct FexpShared {
     Fq12 regs[12];                        // 0 g, 1..3 g^(x^k), 4..11 tape scratch
@@ -68,83 +58,6 @@ struct FexpShared {
 };
 
 static __device__ __forceinline__ Fq2* coeffs(Fq12& a) { return reinterpret_cast<Fq2*>(&a); }
-
-// r = the sum of the coefficients of a that mask selects
-static __device__ __forceinline__ void fq2_sum(Fq2& r, const Fq2* a, int mask) {
-    bool first = true;
-#pragma unroll
-    for (int q = 0; q < 6; q++) {
-        if (!(mask >> q & 1)) continue;
-        if (first) r = a[q];
-        else fq2_add(r, r, a[q]);
-        first = false;
-    }
-}
-
-// acc +/-= c v for a small non-zero integer c
-static __device__ __forceinline__ void fq2_add_small(Fq2& acc, const Fq2& v, int c) {
-    Fq2 t = v;
-    for (int k = 1; k < (c < 0 ? -c : c); k++) fq2_add(t, t, v);
-    if (c > 0) fq2_add(acc, acc, t);
-    else fq2_sub(acc, acc, t);
-}
-
-// One table operation on one warp (every lane calls it; l = lane):
-// out[q] = form q over the products x_k * y_k and the inputs a.  a, b and
-// out are coefficient arrays in shared memory; out may alias a or b.  Up
-// to SPLIT_MAX products (a cyclotomic squaring's 9) run as their three
-// Karatsuba Fq products on three lanes each, then one lane per product
-// combines its parts.
-static __device__ __noinline__ void lin_op(Fq2* out, const Fq2* a, const Fq2* b, int op,
-                                           Fq2* prods, Fq (*parts)[3], const Tables& tab,
-                                           int l) {
-    const int nprod = tab.nprod[op];
-    if (nprod <= SPLIT_MAX) {
-        const int k = l / 3, part = l % 3;
-        if (k < nprod) {
-            Fq2 x, y;
-            fq2_sum(x, a, tab.xmask[op][k]);
-            fq2_sum(y, b, tab.ymask[op][k]);
-            Fq u = part == 1 ? x.c1 : x.c0, w = part == 1 ? y.c1 : y.c0;
-            if (part == 2) {
-                fq_add(u, u, x.c1);
-                fq_add(w, w, y.c1);
-            }
-            fq_mul(parts[k][part], u, w);
-        }
-        __syncwarp();
-        if (l < nprod) {
-            Fq s;
-            fq_add(s, parts[l][0], parts[l][1]);
-            fq_sub(prods[l].c0, parts[l][0], parts[l][1]);
-            fq_sub(prods[l].c1, parts[l][2], s);
-        }
-    } else if (l < nprod) {
-        Fq2 x, y;
-        fq2_sum(x, a, tab.xmask[op][l]);
-        fq2_sum(y, b, tab.ymask[op][l]);
-        fq2_mul(prods[l], x, y);
-    }
-    __syncwarp();
-    Fq2 o;
-    if (l < tab.nout[op]) {
-        Fq2 p, s;                          // the xi^0 and xi^1 parts
-        fq2_zero(p);
-        fq2_zero(s);
-        for (int t = 0; t < SCHED_MAX_TERMS; t++) {
-            const signed char* term = tab.terms[op][l][t];
-            if (term[1] == 0) break;
-            const Fq2& v = term[0] < SCHED_INPUT ? prods[term[0]] : a[term[0] - SCHED_INPUT];
-            if (term[2]) fq2_add_small(s, v, term[1]);
-            else fq2_add_small(p, v, term[1]);
-        }
-        fq2_mul_xi(s, s);
-        fq2_add(o, p, s);
-    }
-    __syncwarp();
-    if (l < tab.nout[op]) out[l] = o;
-    __syncwarp();
-}
 
 // out = a^(p^k), k in {1, 2, 3}: coefficient q times FROB[k-1][q]
 static __device__ __noinline__ void frob_op(Fq2* out, const Fq2* a, int k, int l) {
@@ -205,11 +118,7 @@ final_exp_kernel(const long long* __restrict__ in, long long* __restrict__ out) 
     const size_t base = (size_t)blockIdx.x * 192;
     Fq2* prods = sh.prods[warp];
     Fq(*parts)[3] = sh.parts[warp];
-    copy_table(sh.tab.nprod, OP_NPROD);
-    copy_table(sh.tab.nout, OP_NOUT);
-    copy_table(sh.tab.xmask, OP_XMASK);
-    copy_table(sh.tab.ymask, OP_YMASK);
-    copy_table(sh.tab.terms, OP_TERMS);
+    load_tables(sh.tab);
     __syncthreads();
 #define R(k) coeffs(sh.regs[k])
 #define OP(...) lin_op(__VA_ARGS__, prods, parts, sh.tab, l)

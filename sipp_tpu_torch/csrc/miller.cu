@@ -1,5 +1,5 @@
 // K1: the Miller product  prod_i miller(P_i, Q_i)  over lanes; K7 (below
-// it): one step of the Miller loop.
+// it): one step of the Miller loop, as one digit's slice of K1's program.
 //
 // Replaces sipp_tpu/ops/pallas_miller.py:miller_product_fused (kernel body
 // _full_kernel): the whole optimal-ate Miller loop over the NAF of 6x+2, the
@@ -52,8 +52,9 @@
 
 #define MILLER_TREE_WARPS 8
 
-// the tables of the operations, copied to shared memory at the start
-struct MillerTables {
+// the tables of the operations, copied to shared memory at the start, each
+// a whole number of 32-bit words (so copy_table moves words)
+struct __align__(16) MillerTables {
     unsigned char nprod[MOP_N_OPS], nout[MOP_N_OPS];
     unsigned char x[MOP_N_OPS][MOP_MAX_PROD][MOP_OPND], y[MOP_N_OPS][MOP_MAX_PROD][MOP_OPND];
     unsigned char dst[MOP_N_OPS][MOP_MAX_OUT];
@@ -314,126 +315,60 @@ miller_tree_kernel(const long long* __restrict__ partials, long long* __restrict
 }
 
 // ---------------------------------------------------------------- K7
-// The one-thread Miller step functions below (fq12_mul_line, dbl_step,
-// add_step, and bn254.cuh's fq12_sqr) serve K7 alone.
-
-struct Jac2 { Fq2 X, Y, Z; };
-struct Line { Fq2 a, b, c; };   // a + b w + c v w
-
-// f * (a + b w + c v w): 15 Fq2 products (the reference's fq12_mul_line)
-static __device__ __noinline__ void fq12_mul_line(Fq12& f, const Line& l) {
-    const Fq2 &f00 = f.c[0].c[0], &f01 = f.c[0].c[1], &f02 = f.c[0].c[2];
-    const Fq2 &f10 = f.c[1].c[0], &f11 = f.c[1].c[1], &f12 = f.c[1].c[2];
-    Fq2 s0, s1, s2, ab, v[15];
-    fq2_add(s0, f00, f10); fq2_add(s1, f01, f11); fq2_add(s2, f02, f12);
-    fq2_add(ab, l.a, l.b);
-    fq2_mul(v[0], f00, l.a); fq2_mul(v[1], f01, l.a); fq2_mul(v[2], f02, l.a);
-    fq2_mul(v[3], f10, l.b); fq2_mul(v[4], f11, l.b); fq2_mul(v[5], f12, l.b);
-    fq2_mul(v[6], f10, l.c); fq2_mul(v[7], f11, l.c); fq2_mul(v[8], f12, l.c);
-    fq2_mul(v[9], s0, ab); fq2_mul(v[10], s1, ab); fq2_mul(v[11], s2, ab);
-    fq2_mul(v[12], s0, l.c); fq2_mul(v[13], s1, l.c); fq2_mul(v[14], s2, l.c);
-    Fq2 r0, r1, r2, t0, t1, t2, x;
-    fq2_mul_xi(x, v[8]); fq2_add(r0, v[3], x);          // f1 * (b + c v)
-    fq2_add(r1, v[4], v[6]);
-    fq2_add(r2, v[5], v[7]);
-    fq2_mul_xi(x, v[14]); fq2_add(t0, v[9], x);         // (f0+f1)(a+b + c v)
-    fq2_add(t1, v[10], v[12]);
-    fq2_add(t2, v[11], v[13]);
-    fq2_mul_xi(x, r2); fq2_add(f.c[0].c[0], v[0], x);   // c0 = f0 a + v r
-    fq2_add(f.c[0].c[1], v[1], r0);
-    fq2_add(f.c[0].c[2], v[2], r1);
-    fq2_add(x, v[0], r0); fq2_sub(f.c[1].c[0], t0, x);  // c1 = t - f0 a - r
-    fq2_add(x, v[1], r1); fq2_sub(f.c[1].c[1], t1, x);
-    fq2_add(x, v[2], r2); fq2_sub(f.c[1].c[2], t2, x);
-}
-
-// T <- 2T, with the line  2YZ^3 yp - 3X^2Z^2 xp w + (3X^3 - 2Y^2) v w
-static __device__ __noinline__ void dbl_step(Jac2& t, Line& l, const Fq& xp, const Fq& yp) {
-    Fq2 A, B, ZZ, YZ, C, D, T1, T2, T3, x, S, M;
-    fq2_sqr(A, t.X); fq2_sqr(B, t.Y); fq2_sqr(ZZ, t.Z); fq2_mul(YZ, t.Y, t.Z);
-    fq2_add(x, t.X, B);
-    fq2_sqr(C, B); fq2_sqr(D, x); fq2_mul(T1, YZ, ZZ); fq2_mul(T2, A, ZZ); fq2_mul(T3, t.X, A);
-    fq2_sub(S, D, A); fq2_sub(S, S, C); fq2_dbl(S, S);          // 4 X Y^2
-    fq2_dbl(M, A); fq2_add(M, M, A);                            // 3 X^2
-    Fq2 X3, Y3;
-    fq2_sqr(X3, M); fq2_dbl(x, S); fq2_sub(X3, X3, x);
-    fq2_sub(x, S, X3); fq2_mul(Y3, M, x);
-    fq2_dbl(x, C); fq2_dbl(x, x); fq2_dbl(x, x); fq2_sub(Y3, Y3, x);
-    fq2_dbl(t.Z, YZ);
-    t.X = X3;
-    t.Y = Y3;
-    fq2_dbl(x, T1); fq2_scale(l.a, x, yp);
-    fq2_dbl(x, T2); fq2_add(x, x, T2); fq2_scale(x, x, xp); fq2_neg(l.b, x);
-    fq2_dbl(x, T3); fq2_add(x, x, T3); fq2_dbl(l.c, B); fq2_sub(l.c, x, l.c);
-}
-
-// T <- T + Q (Q affine), with the line  Z3 yp - theta xp w + (theta x2 - Z3 y2) v w
-static __device__ __noinline__ void add_step(Jac2& t, Line& l, const Fq2& x2, const Fq2& y2,
-                                             const Fq& xp, const Fq& yp) {
-    Fq2 ZZ, ZZZ, U2, S2, H, R, HH, RR, HHH, V, Z3, X3, Y3, x;
-    fq2_sqr(ZZ, t.Z);
-    fq2_mul(ZZZ, ZZ, t.Z); fq2_mul(U2, x2, ZZ);
-    fq2_mul(S2, y2, ZZZ);
-    fq2_sub(H, U2, t.X);
-    fq2_sub(R, S2, t.Y);
-    fq2_sqr(HH, H); fq2_sqr(RR, R);
-    fq2_mul(HHH, H, HH); fq2_mul(V, t.X, HH); fq2_mul(Z3, t.Z, H);
-    fq2_sub(X3, RR, HHH); fq2_dbl(x, V); fq2_sub(X3, X3, x);
-    fq2_sub(x, V, X3); fq2_mul(Y3, R, x); fq2_mul(x, t.Y, HHH); fq2_sub(Y3, Y3, x);
-    fq2_mul(l.c, R, x2); fq2_mul(x, Z3, y2); fq2_sub(l.c, l.c, x);
-    fq2_scale(l.a, Z3, yp);
-    fq2_scale(x, R, xp); fq2_neg(l.b, x);
-    t.X = X3; t.Y = Y3; t.Z = Z3;
-}
-
 // K7: ONE Miller step for n lanes (replaces sipp_tpu/ops/pallas_miller.py:
 // miller_step, kernel _step_kernel): f <- f^2 * line_dbl(T, P), T <- 2T,
 // then, when the shared NAF digit is not 0, f <- f * line_add(T, +-Q, P),
 // T <- T +- Q (digit 1 adds qp, digit 2 adds qn = -Q).  The steps of K1's
 // loop, one launch per digit: the JAX package's SIPP_WHOLE_LOOP=0 engine.
 //
-// Design: one thread per lane, STEP_BLOCK lanes per block, so 128 lanes
-// fill four SMs; the digit comes by value (a launch needs no host read) and
+// Design: K1's warp per lane, run one digit at a time.  Each lane runs on
+// one warp, MILLER_BLOCK_LANES lanes a block, as the digit's slice of K1's
+// program (ops/schedule.py STEP_PROGRAM, the generated STEP_PROG): digit 0
+// is dbl1, dbl2_sqr, dbl3, ml (4 table operations), digits 1 and 2 add
+// add1_ml, add2, add3, add4_ml, add5 (8), the line multiplies on the
+// threads that a curve stage leaves idle, the last one flushed at the end
+// of the step.  The digit comes by value (a launch needs no host read) and
 // is uniform over the grid.  The carry stays in the port's (n, ...) layout
-// in device memory between launches, canonical.  What bounds it on the
-// H100: each lane's latency chain on one thread (38 dependent Fq2 products
-// a step, 66 with the add), plus the carry's 2,304 bytes of int64 limbs
-// read and written per lane, and a launch per digit.  K1's warp-per-lane
-// operations (above) are the design a redesign of K7 would start from.
-#define STEP_BLOCK 32
+// in device memory between launches, canonical: thread j of a lane's warp
+// loads one Fq2 slot (f, T, P as (x, 0), and the addend from the digit's
+// own tensor) and stores one.  Unlike K1, a lane whose P or Q is at
+// infinity runs the step like any other, as the plain step does (the tail
+// masks it); lanes past n do nothing.  What bounds it on the H100: the
+// latency of 4 (8) table operations on one warp, plus the carry's 2,304
+// bytes of int64 limbs read and written per lane, the tables' copy to
+// shared memory, and a launch per digit.
 
-__global__ void __launch_bounds__(STEP_BLOCK)
+__global__ void __launch_bounds__(32 * MILLER_BLOCK_LANES)
 miller_step_kernel(int digit, const long long* __restrict__ qp,
                    const long long* __restrict__ qn, const long long* __restrict__ p,
                    const long long* __restrict__ f_in, const long long* __restrict__ t_in,
                    long long* __restrict__ f_out, long long* __restrict__ t_out, int n) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    Fq xp, yp;
-    fq_load(xp, p + 32 * lane);
-    fq_load(yp, p + 32 * lane + 16);
-    Fq12 f;
-    fq12_load(f, f_in + (size_t)lane * 192);
-    Jac2 t;
-    fq2_load(t.X, t_in + (size_t)lane * 96);
-    fq2_load(t.Y, t_in + (size_t)lane * 96 + 32);
-    fq2_load(t.Z, t_in + (size_t)lane * 96 + 64);
-    Line l;
-    fq12_sqr(f, f);
-    dbl_step(t, l, xp, yp);
-    fq12_mul_line(f, l);
-    if (digit != 0) {
-        const long long* q = (digit == 1 ? qp : qn) + 64 * lane;
-        Fq2 qx, qy;
-        fq2_load(qx, q);
-        fq2_load(qy, q + 32);
-        add_step(t, l, qx, qy, xp, yp);
-        fq12_mul_line(f, l);
+    static_assert(MS_Y == MS_X + 1 && MS_Z == MS_X + 2 && MS_YP == MS_XP + 1
+                  && MS_AY == MS_AX + 1, "K7 loads T, P and the addend as runs of slots");
+    __shared__ MillerTables tab;
+    __shared__ MillerLane lanes[MILLER_BLOCK_LANES];
+    const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+    const int lane = blockIdx.x * MILLER_BLOCK_LANES + warp;
+    Fq2* s = lanes[warp].slot;
+    if (lane < n) {
+        if (l < 6) {
+            fq2_load(s[l], f_in + (size_t)lane * 192 + 32 * l);
+        } else if (l < 9) {
+            fq2_load(s[MS_X + l - 6], t_in + (size_t)lane * 96 + 32 * (l - 6));
+        } else if (l < 11) {
+            fq_load(s[MS_XP + l - 9].c0, p + (size_t)lane * 32 + 16 * (l - 9));
+            fq_zero(s[MS_XP + l - 9].c1);
+        } else if (l < 13 && digit != 0) {
+            fq2_load(s[MS_AX + l - 11], (digit == 1 ? qp : qn) + (size_t)lane * 64 + 32 * (l - 11));
+        }
     }
-    fq12_store(f_out + (size_t)lane * 192, f);
-    fq2_store(t_out + (size_t)lane * 96, t.X);
-    fq2_store(t_out + (size_t)lane * 96 + 32, t.Y);
-    fq2_store(t_out + (size_t)lane * 96 + 64, t.Z);
+    load_miller_tables(tab);        // after the carry's loads, which it overlaps
+    __syncthreads();
+    if (lane >= n) return;
+    for (int i = 0; i < STEP_LEN[digit]; i++)
+        mop_run(STEP_PROG[digit][i], s, s, s, lanes[warp].w, tab, l);
+    if (l < 6) fq2_store(f_out + (size_t)lane * 192 + 32 * l, s[l]);
+    else if (l < 9) fq2_store(t_out + (size_t)lane * 96 + 32 * (l - 6), s[MS_X + l - 6]);
 }
 
 // The launchers (nvcc only: a CPU test compiles the device code above with
@@ -446,17 +381,13 @@ extern "C" int sipp_miller_step(int digit, const void* qp, const void* qn, const
                                 const void* f_in, const void* t_in, void* f_out, void* t_out,
                                 int n, void* stream) {
     if (n <= 0 || digit < 0 || digit > 2) return (int)cudaErrorInvalidValue;
-    miller_step_kernel<<<(n + STEP_BLOCK - 1) / STEP_BLOCK, STEP_BLOCK, 0,
-                         (cudaStream_t)stream>>>(
+    miller_step_kernel<<<(n + MILLER_BLOCK_LANES - 1) / MILLER_BLOCK_LANES,
+                         32 * MILLER_BLOCK_LANES, 0, (cudaStream_t)stream>>>(
         digit, (const long long*)qp, (const long long*)qn, (const long long*)p,
         (const long long*)f_in, (const long long*)t_in, (long long*)f_out,
         (long long*)t_out, n);
     return (int)cudaGetLastError();
 }
-
-// p: (n, 2, 16), q: (n, 2, 2, 16) int64 limbs; block: lanes per block, a
-// power of two up to MILLER_MAX_BLOCK that divides n (the wrapper chooses
-// it); out: (n / block, pair ? 2 : 1, 2, 3, 2, 16).
 
 // p: (n, 2, 16), q: (n, 2, 2, 16) int64 limbs; partials: scratch of
 // ceil(n / MILLER_BLOCK_LANES) x (pair ? 2 : 1) x MILLER_PARTIAL_LIMBS

@@ -35,7 +35,7 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "build"
 CUDA_SRC = PKG / "csrc"
 CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu", "transcript.cu", "exp.cu", "fq.cu")
-CUDA_HEADERS = ("bn254.cuh", "ladder.cuh")
+CUDA_HEADERS = ("bn254.cuh", "fq12_table.cuh", "ladder.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -77,10 +77,11 @@ def _words(x: int, n: int = 8):
     return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(n)]
 
 
-def _arr(name: str, ctype: str, dims: str, flat) -> str:
+def _arr(name: str, ctype: str, dims: str, flat, align: int = 0) -> str:
     fmt = {"uint32_t": "0x{:08x}u", "uint64_t": "0x{:016x}ull"}.get(ctype, "{}")
     body = ", ".join(fmt.format(v) for v in flat)
-    return f"static __constant__ {ctype} {name}{dims} = {{{body}}};\n"
+    prefix = f"__align__({align}) " if align else ""
+    return f"{prefix}static __constant__ {ctype} {name}{dims} = {{{body}}};\n"
 
 
 def params_header() -> str:
@@ -160,7 +161,8 @@ def schedule_header() -> str:
     products' input masks and each output's linear form: source,
     coefficient, power of xi, padded with coefficient 0; the x-power's
     product tree over the stored squarings) and K1's (the slots, the
-    Miller operations' tables and the program)."""
+    Miller operations' tables and the program) with K7's per-digit
+    programs."""
     from . import schedule as S
 
     ops = S.OPS
@@ -178,14 +180,16 @@ def schedule_header() -> str:
         text += _arr(f"OP_{name.upper()}", "unsigned char", f"[{len(ops)}][{S.N_PROD}]",
                      [m for op in ops for m in list(getattr(op, name))
                       + [0] * (S.N_PROD - len(op.xmask))])
+    # (16-byte aligned: whole 32-bit words, which copy_table moves a word at a time)
     text += _arr("OP_TERMS", "signed char", f"[{len(ops)}][6][{S.MAX_TERMS}][3]",
                  [v for op in ops for q in range(6)
                   for t in (list(op.terms[q]) if q < len(op.terms) else [])
                   + [pad] * (S.MAX_TERMS - (len(op.terms[q]) if q < len(op.terms) else 0))
-                  for v in t])
+                  for v in t], 16)
     # K1's Miller program: operand terms as slot | 0x40 (times xi) | 0x80
     # (negated), 0xFF-padded; forms as (source, coefficient, xi power),
-    # padded with coefficient 0
+    # padded with coefficient 0; the operations' tables 16-byte aligned
+    # (whole 32-bit words, which copy_table moves a word at a time)
     mops = S.M_OPS
     text += "".join(f"#define MS_{name} {i}\n" for i, name in enumerate(S.SLOTS))
     text += "".join(f"#define MOP_{op.name.upper()} {i}\n" for i, op in enumerate(mops))
@@ -193,25 +197,32 @@ def schedule_header() -> str:
              f"#define MOP_MAX_PROD {S.M_PROD}\n#define MOP_OPND {S.M_OPND}\n"
              f"#define MOP_SPLIT2 {S.M_SPLIT2}\n#define MOP_MAX_OUT {S.M_MAX_OUT}\n"
              f"#define MOP_MAX_TERMS {S.M_MAX_TERMS}\n#define MILLER_PROG_LEN {len(S.PROGRAM)}\n")
-    text += _arr("MOP_NPROD", "unsigned char", f"[{len(mops)}]", [len(op.x) for op in mops])
-    text += _arr("MOP_NOUT", "unsigned char", f"[{len(mops)}]", [len(op.dst) for op in mops])
+    text += _arr("MOP_NPROD", "unsigned char", f"[{len(mops)}]", [len(op.x) for op in mops], 16)
+    text += _arr("MOP_NOUT", "unsigned char", f"[{len(mops)}]", [len(op.dst) for op in mops], 16)
     for name in ("x", "y"):
         text += _arr(f"MOP_{name.upper()}", "unsigned char",
                      f"[{len(mops)}][{S.M_PROD}][{S.M_OPND}]",
                      [b for op in mops for k in range(S.M_PROD)
-                      for b in _operand_bytes(getattr(op, name), k, S.M_OPND)])
+                      for b in _operand_bytes(getattr(op, name), k, S.M_OPND)], 16)
     text += _arr("MOP_DST", "unsigned char", f"[{len(mops)}][{S.M_MAX_OUT}]",
-                 [d for op in mops for d in list(op.dst) + [0] * (S.M_MAX_OUT - len(op.dst))])
+                 [d for op in mops for d in list(op.dst) + [0] * (S.M_MAX_OUT - len(op.dst))], 16)
     text += _arr("MOP_TERMS", "signed char",
                  f"[{len(mops)}][{S.M_MAX_OUT}][{S.M_MAX_TERMS}][3]",
                  [v for op in mops for j in range(S.M_MAX_OUT)
                   for t in (list(op.terms[j]) if j < len(op.terms) else [])
                   + [pad] * (S.M_MAX_TERMS - (len(op.terms[j]) if j < len(op.terms) else 0))
-                  for v in t])
+                  for v in t], 16)
     text += _arr("MILLER_PROG", "unsigned char", f"[{len(S.PROGRAM)}][3]",
                  [v for name, addend in S.PROGRAM
                   for v in (S.M_OP_ID[name], *((S.SLOT[a] for a in addend) if addend
                                                else (0xFF, 0xFF)))])
+    # K7's per-digit programs: operation ids, 0xFF-padded
+    steps = max(len(prog) for prog in S.STEP_PROGRAM)
+    text += _arr("STEP_LEN", "unsigned char", f"[{len(S.STEP_PROGRAM)}]",
+                 [len(prog) for prog in S.STEP_PROGRAM])
+    text += _arr("STEP_PROG", "unsigned char", f"[{len(S.STEP_PROGRAM)}][{steps}]",
+                 [v for prog in S.STEP_PROGRAM
+                  for v in [S.M_OP_ID[name] for name in prog] + [0xFF] * (steps - len(prog))])
     width = max(len(level) for level in S.POWX_TREE)
     text += _arr("POWX_N", "unsigned char", f"[{len(S.POWX_TREE)}]",
                  [len(level) for level in S.POWX_TREE])
@@ -234,27 +245,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _build_cuda(cmd: list, inc: pathlib.Path, key: str) -> tuple:
-    """One nvcc -c per source, all running at once, then one nvcc link."""
+def _build_cuda(cmd: list, inc: pathlib.Path, key: str, src: pathlib.Path) -> tuple:
+    """One nvcc -c per source of `src`, all running at once, then one nvcc
+    link."""
     out = BUILD_DIR / f"libsipp_cuda_{key}.so"
     if out.exists():
         return out, ""
     objdir = BUILD_DIR / f"obj_{key}.{os.getpid()}"
     objdir.mkdir(parents=True, exist_ok=True)
     procs = [(src, subprocess.Popen(
-        [*cmd, f"-I{inc}", f"-I{CUDA_SRC}", "-c", "-o", str(objdir / f"{src}.o"),
-         str(CUDA_SRC / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for src in CUDA_SOURCES]
+        [*cmd, f"-I{inc}", f"-I{src}", "-c", "-o", str(objdir / f"{name}.o"),
+         str(src / name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in CUDA_SOURCES]
     logs, failed = [], []
-    for src, proc in procs:
+    for name, proc in procs:
         logs.append(proc.communicate()[0])
         if proc.returncode != 0:
-            failed.append(src)
+            failed.append(name)
     if failed:
         raise RuntimeError(f"building {', '.join(failed)} failed:\n" + "\n".join(logs))
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     link = subprocess.run([cmd[0], "-shared", "-o", str(tmp),
-                           *(str(objdir / f"{src}.o") for src in CUDA_SOURCES)],
+                           *(str(objdir / f"{name}.o") for name in CUDA_SOURCES)],
                           capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"linking the CUDA library failed:\n{link.stdout}\n{link.stderr}")
@@ -264,8 +276,9 @@ def _build_cuda(cmd: list, inc: pathlib.Path, key: str) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def cuda_library():
-    """Build (or find) and load the kernels' shared library."""
+def cuda_library(src: pathlib.Path = CUDA_SRC):
+    """Build (or find) and load the kernels' shared library from the
+    sources in `src` (csrc/, or a variant of it that a tool times)."""
     headers = {"bn254_params.cuh": params_header(),
                "transcript_params.cuh": transcript_header(),
                "schedule_params.cuh": schedule_header()}
@@ -279,8 +292,8 @@ def cuda_library():
     t0 = time.time()
     cmd = [_nvcc(), *NVCC_FLAGS]
     key = _digest([*cmd, *headers.values(),
-                   *((CUDA_SRC / f).read_bytes() for f in CUDA_SOURCES + CUDA_HEADERS)])
-    path, log = _build_cuda(cmd, inc, key)
+                   *((src / f).read_bytes() for f in CUDA_SOURCES + CUDA_HEADERS)])
+    path, log = _build_cuda(cmd, inc, key, src)
     BUILD_INFO.update(seconds=time.time() - t0, log=log, path=str(path))
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int

@@ -1,5 +1,6 @@
-"""The product schedules of the redesigned kernels K1 (csrc/miller.cu), K2
-(csrc/fexp.cu) and K3/K6 (csrc/ladder.cuh), as data that ops/_build.py
+"""The product schedules of the redesigned kernels K1 and K7
+(csrc/miller.cu), K2 and K8 (csrc/fexp.cu, csrc/exp.cu) and K3/K6
+(csrc/ladder.cuh), as data that ops/_build.py
 writes into the kernels' constants header, with plain PyTorch evaluators
 of the same data for the CPU tests.
 
@@ -24,7 +25,9 @@ same adds between them, same selects), which the tests hold against
 curves' own dbl and add_mixed.
 
 K1 runs a Miller lane on one warp as a program of the same kind of table
-operations over the lane's slots (M_OPS, PROGRAM; see that section).
+operations over the lane's slots (M_OPS, PROGRAM; see that section); K7
+runs one digit's slice of it (STEP_PROGRAM).  K8 runs K2's Fq12 multiply
+table for every squaring and multiply of its ladder.
 """
 
 import collections
@@ -420,8 +423,8 @@ def _sqr():
 
 
 def _mul_line():
-    """f <- f (a + b w + c v w): 15 Fq2 products (csrc/miller.cu's
-    one-thread fq12_mul_line, the reference's)."""
+    """f <- f (a + b w + c v w): 15 Fq2 products (the reference's
+    tower.fq12_mul_line)."""
     st = _Stage()
     f0, f1 = ["f0", "f1", "f2"], ["f3", "f4", "f5"]
     v = [st.mul([f0[j]], ["LA"]) for j in range(3)]
@@ -519,30 +522,47 @@ M_MAX_OUT = max(len(op.dst) for op in M_OPS)
 M_MAX_TERMS = max(len(t) for op in M_OPS for t in op.terms)
 
 
-def _program():
-    """(operation, addend) per step: along the digits, each doubling's three
+def _steps(digits):
+    """(operation, addend) per step along `digits`: each doubling's three
     stages with the squaring beside the second; a digit's line multiply
     beside the next stage that does not write f (the next doubling's first,
     or the addition's first); an addition's line multiply beside its fourth
-    stage; then the Frobenius lines, +pi(Q) and -pi^2(Q) (the last needs
-    its line only)."""
-    from ..pairing.ate import DIGITS
-
+    stage.  Returns the steps and whether a line multiply is still
+    pending."""
     prog, pending = [], False
-    for d in DIGITS:
+    for d in digits:
         prog += [("dbl1_ml" if pending else "dbl1", None), ("dbl2_sqr", None), ("dbl3", None)]
         pending = True
         if d:
             prog += [("add1_ml", ADDENDS[d]), ("add2", None), ("add3", None),
                      ("add4_ml", None), ("add5", None)]
             pending = False
+    return prog, pending
+
+
+def _program():
+    """K1's program: the steps along the digits, then the Frobenius lines,
+    +pi(Q) and -pi^2(Q) (the last needs its line only)."""
+    from ..pairing.ate import DIGITS
+
+    prog, pending = _steps(DIGITS)
     prog += [("add1_ml" if pending else "add1", ADDENDS["frob1"]), ("add2", None),
              ("add3", None), ("add4_ml", None), ("add5", None),
              ("add1", ADDENDS["frob2"]), ("add2", None), ("add3", None), ("ml", None)]
     return tuple(prog)
 
 
+def _step_program(digit):
+    """K7's program for one digit: the steps of that digit alone, the
+    pending line multiply flushed at the end.  The addend (AX, AY) is the
+    digit's own tensor, qp or qn, which the kernel loads; so only the
+    operations are kept."""
+    prog, pending = _steps((digit,))
+    return tuple(name for name, _ in prog) + (("ml",) if pending else ())
+
+
 PROGRAM = _program()
+STEP_PROGRAM = tuple(_step_program(d) for d in (0, 1, 2))
 
 
 # the plain evaluators of the Miller program (the CPU tests' view of the
@@ -611,3 +631,22 @@ def miller_program(p_aff, q_aff):
             slots[..., SLOT["AY"], :, :] = slots[..., SLOT[addend[1]], :, :]
         slots = run_miller_op(M_OPS[M_OP_ID[name]], slots)
     return _fq12(slots[..., :6, :, :])
+
+
+def miller_step_program(digit, qp, qn, p, f, t):
+    """One Miller step as K7 computes it: STEP_PROGRAM[digit]'s operations
+    on slots holding f, T, P as Fq2 (x, 0) and the addend from the digit's
+    own tensor (qp for 1, qn for 2).  Same arguments and result as
+    ate.miller_step_plain."""
+    S = SLOT
+    slots = torch.zeros((*p.shape[:-2], len(SLOTS), 2, F.L), dtype=torch.int64, device=p.device)
+    slots[..., :6, :, :] = _coeffs(f)
+    slots[..., S["X"]:S["Z"] + 1, :, :] = t
+    for name, k in (("XP", 0), ("YP", 1)):
+        slots[..., S[name], 0, :] = p[..., k, :]
+    if digit:
+        q = qp if digit == 1 else qn
+        slots[..., S["AX"], :, :], slots[..., S["AY"], :, :] = q[..., 0, :, :], q[..., 1, :, :]
+    for name in STEP_PROGRAM[digit]:
+        slots = run_miller_op(M_OPS[M_OP_ID[name]], slots)
+    return _fq12(slots[..., :6, :, :]), slots[..., S["X"]:S["Z"] + 1, :, :]

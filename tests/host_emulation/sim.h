@@ -1,4 +1,4 @@
-// Host emulation of the CUDA built-ins that the K1-K6 device code uses, so
+// Host emulation of the CUDA built-ins that the K1-K8 device code uses, so
 // that g++ compiles sipp_tpu_torch/csrc/{miller,fexp,fold,exp,transcript}.cu's
 // kernels for the CPU: a block runs as host threads, __syncwarp /
 // __syncthreads are barriers of the warp's / block's threads, __shfl_sync and
@@ -55,7 +55,7 @@ inline T __shfl_xor_sync(unsigned mask, T var, int lane_mask, int width = 32) {
 #define __shared__ static
 #define __launch_bounds__(x)
 #define __restrict__
-#define __align__(n) alignas(n)
+#define __align__(n) __attribute__((aligned(n)))
 
 // Run body as block `block` of `nthreads` threads (one block at a time: the
 // __shared__ statics are the block's shared memory).

@@ -9,6 +9,10 @@
 //   sim fexp N in out         f (N, 2, 3, 2, 16) -> (N, 2, 3, 2, 16)
 //   sim miller N in out       p (N, 2, 16), q (N, 2, 2, 16) -> (2, 3, 2, 16)
 //   sim miller_pair N in out  the same -> (2, 2, 3, 2, 16)
+//   sim miller_step N in out  digit (1,), qp, qn (N, 2, 2, 16), p (N, 2, 16),
+//                             f (N, 2, 3, 2, 16), t (N, 3, 2, 16) -> f, t over
+//                             the grid's whole blocks (lanes past N as -1)
+//   sim fq12_exp N in out     x, off (N, 2, 3, 2, 16), bits (254, N) -> (N, 2, 3, 2, 16)
 //   sim round N in out        N cases of a full flag, 12 u64 words x and 12
 //                             canonical constants c -> one round, canonical
 //   sim permute N in out      N states of 12 canonical u64 -> permuted
@@ -103,6 +107,27 @@ int main(int argc, char** argv) {
         out.resize(192 * (size_t)n);
         for (int e = 0; e < n; e++)
             run_block(e, 32 * FEXP_WARPS, [&] { final_exp_kernel(in.data(), out.data()); });
+    } else if (!strcmp(mode, "miller_step")) {
+        const int blocks = (n + MILLER_BLOCK_LANES - 1) / MILLER_BLOCK_LANES;
+        const size_t lanes = (size_t)blocks * MILLER_BLOCK_LANES;
+        const long long* qp = in.data() + 1;
+        const long long* qn = qp + (size_t)n * 64;
+        const long long* p = qn + (size_t)n * 64;
+        const long long* f_in = p + (size_t)n * 32;
+        const long long* t_in = f_in + (size_t)n * 192;
+        out.assign(lanes * (192 + 96), -1);
+        for (int b = 0; b < blocks; b++)
+            run_block(b, 32 * MILLER_BLOCK_LANES, [&] {
+                miller_step_kernel((int)in[0], qp, qn, p, f_in, t_in, out.data(),
+                                   out.data() + lanes * 192, n);
+            });
+    } else if (!strcmp(mode, "fq12_exp")) {
+        const long long* x = in.data();
+        out.resize(192 * (size_t)n);
+        for (int b = 0; b < n; b++)
+            run_block(b, 32, [&] {
+                fq12_exp_kernel(x, x + (size_t)n * 192, x + (size_t)n * 384, out.data(), n);
+            });
     } else if (!strncmp(mode, "miller", 6)) {
         const int pair = !strcmp(mode, "miller_pair");
         const int k = pair ? 2 : 1;

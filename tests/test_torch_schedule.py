@@ -241,6 +241,30 @@ def test_miller_program_matches_miller_loop(miller_lanes):
     assert torch.equal(schedule.miller_program(a, b), ate.miller_loop(a, b))
 
 
+@pytest.fixture(scope="module")
+def step_carry():
+    """K7's inputs at 5 lanes: the carry two digits into the loop, a P at
+    infinity (lane 1) and a Q at infinity (lane 3), and a qn that is not
+    -qp (the next lane's point), so that each digit shows which tensor it
+    reads."""
+    a, b = random_instance(5, seed=43, device="cpu")
+    a[1], b[3] = 0, 0
+    f, t, qn = ate.miller_start(a, b)
+    for d in ate.DIGITS[:2]:
+        f, t = ate.miller_step_plain(d, b, qn, a, f, t)
+    return b, torch.roll(b, 1, 0), a, f, t
+
+
+@pytest.mark.parametrize("digit", [0, 1, 2])
+def test_step_program_matches_miller_step_plain(step_carry, digit):
+    """K7's program for one digit (K1's steps of that digit, the pending
+    line multiply flushed) gives the plain step's f and T's coordinates."""
+    assert len(schedule.STEP_PROGRAM[digit]) == (4 if digit == 0 else 8)
+    got = schedule.miller_step_program(digit, *step_carry)
+    want = ate.miller_step_plain(digit, *step_carry)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_generated_header_holds_the_miller_tables():
     """schedule_params.cuh's K1 arrays are the tables of ops/schedule.py."""
     text = _build.schedule_header()
@@ -263,6 +287,10 @@ def test_generated_header_holds_the_miller_tables():
             assert [tuple(t) for t in terms[i, j] if t[1]] == list(form)
     prog = array("MILLER_PROG").reshape(-1, 3)
     assert [schedule.M_OPS[o].name for o in prog[:, 0]] == [n for n, _ in schedule.PROGRAM]
+    steps = array("STEP_PROG").reshape(3, -1)
+    assert list(array("STEP_LEN")) == [len(p) for p in schedule.STEP_PROGRAM]
+    for row, want in zip(steps, schedule.STEP_PROGRAM):
+        assert [schedule.M_OPS[o].name for o in row[:len(want)]] == list(want)
 
 
 # ------------------------------------------ the device code, emulated on the CPU
@@ -368,6 +396,41 @@ def test_miller_kernel_emulated_matches_plain(sim, lanes, pair):
     got = run_sim(sim, mode, lanes, [a, b])
     want = miller.miller_product_plain(a, b, pair=pair)
     assert torch.equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("digit", [0, 1, 2])
+def test_miller_step_kernel_emulated_matches_plain(sim, step_carry, digit):
+    """K7's device code at 5 lanes (a whole block of 4 and one lane of a
+    second block), infinity lanes included, against miller_step_plain; the
+    lanes past n write nothing."""
+    qp, qn, p, f, t = step_carry
+    got = run_sim(sim, "miller_step", 5, [[digit], qp, qn, p, f, t])
+    lanes = 8
+    f_got, t_got = got[:lanes * 192].reshape(lanes, 2, 3, 2, 16), got[lanes * 192:].reshape(
+        lanes, 3, 2, 16)
+    f_want, t_want = ate.miller_step_plain(digit, *step_carry)
+    assert torch.equal(f_got[:5], f_want) and torch.equal(t_got[:5], t_want)
+    assert bool((f_got[5:] == -1).all() and (t_got[5:] == -1).all())
+
+
+def test_fq12_exp_kernel_emulated_matches_plain(sim):
+    """K8's device code (one warp a lane, K2's multiply table, the fixed
+    window) at 5 lanes: seeded x off the cyclotomic subgroup with seeded
+    bits, x = 0, all-zero bits, off = 0, and offsets other than 1; against
+    fq12_exp_plain."""
+    x, off = fq12_values(5, 51), fq12_values(5, 52)
+    x[1] = 0
+    off[4] = 0
+    rng = np.random.default_rng(53)
+    ks = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(5)]
+    ks[2] = 0
+    bits = torch.as_tensor(np.stack([scalar_to_bits(k) for k in ks], 1).astype(np.int64))
+    assert not torch.equal(tower.fq12_cyclo_sqr(x[:1]), tower.fq12_sqr(x[:1]))
+    got = run_sim(sim, "fq12_exp", 5, [x, off, bits]).reshape(x.shape)
+    want = exp.fq12_exp_plain(x, off, bits)
+    assert torch.equal(got, want)
+    assert torch.equal(got[2], off[2]) and bool((got[1] == 0).all())
+    assert bool((got[4] == 0).all())
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
