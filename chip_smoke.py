@@ -17,6 +17,9 @@ and K8 (per-lane Fq12 exp):
   E. the verifier without the C++ library (SIPP_TPU_NO_NATIVE=1): the
      pure-Python Poseidon transcript and the device Z' chain (one K8 launch
      over the proof rows, then the product tree);
+  BLS. the BLS aggregation app at n = 128 (127 signatures of the demo's
+     default_rng(0) stream): the aggregate check (K1 + K2), the on-chip
+     prove and the default verify (MSM finals);
   K0. the field micro-benchmark entry point ops/fq.bench_compare.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
@@ -53,14 +56,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      bits, on 14 seeded lanes off the cyclotomic subgroup (a forged proof's
      rows) with the same bits, and at 100 lanes with all-zero bits, offsets
      of one and x = 1;
-     K0 at 4096 and 1000 elements; K3 at 128 lanes (dead lanes, a dead lo
+     K0 at 4096, 1000 and 2^20 elements (the last drawn on the card by
+     fq.uniform_batch, rows 0, 1 and p - 1 first), with an empty kernel's
+     launch beside it, the floor of any launch; K3 at 128 lanes (dead lanes, a dead lo
      under a live hi, a dead hi under a live lo) and at the fold rounds'
      64 and 1 lanes.  K1's to K8's lines carry the
      time of the same case before their redesign, quoted from PERF.md's
      kernel table and not measured here, as earlier_ms_quoted_from_perf_md
      beside ms (the kernels summary line carries measured numbers only);
      K4's and K5's also their latency_floor_ms (K4's with the shifts and
-     probed cycles of its own challenge's inverse);
+     probed cycles of its own challenge's inverse); then K0 on an operand
+     8 bytes off a 16-byte boundary (the wrapper copies it) and an empty
+     kernel's launch, the floor of any launch;
   3. the n = 128 aggregation Z = FE(prod Miller(A_i, B_i)) must hash to the
      JAX reference's digest, then its steady-state time on distinct inputs;
   4. paths A, B and C, each with the launch counters set to 0 just before it
@@ -85,9 +92,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   6. path E, counted: path C's statement, the tampered proof rejected, the
      n = 4 golden proof and statement; the transcript's and the Z' chain's
      times against the C++ library's;
-  7. K0's entry point, counted: its timing line and equality;
-  8. the kernel table (one row per kernel entry point, K0-K8), the card's
-     name and power limit (nvidia-smi), and the last line
+  7. the BLS app, counted (path BLS): ok, the aggregate check's ms, the
+     on-chip and host-spine provers' proofs byte for byte, Z = 1 in the
+     statement, a tampered sigma (sigma + H(m_0)) rejected, the SHA-256
+     of the instance and of the proof equal to the JAX package's (golden
+     stage bls128), setup_s (pure-Python keys, hashes and signatures, kept
+     out of the card's numbers), prove_s and verify_s; then io: the proof
+     saved, loaded onto the card and verified, its statement saved and
+     loaded, all equal;
+  8. K0's entry point, counted: its timing line and equality;
+  9. the kernel table (one row per kernel entry point, K0-K8; K0's row also
+     with its 2^20 case's times and bound and the empty launch's), the
+     card's name and power limit (nvidia-smi), and the last line
      {"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of its bytes (inputs read once, outputs
@@ -129,6 +145,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -163,10 +180,13 @@ QUOTED_EARLIER_MS = {"final_exp_b1": 14.14, "final_exp_b2": 14.15, "fold_g1": 3.
                      "transcript_round_tail": 0.773, "miller_step_d0": 0.1021,
                      "miller_step_d1": 0.1580, "miller_step_d2": 0.1580,
                      "miller_step_inf_d1": 0.1580, "miller_step_inf_d2": 0.1580,
-                     "fq12_exp_n14": 17.09, "fq12_exp_edge_n100": 17.18}
+                     "fq12_exp_n14": 17.09, "fq12_exp_edge_n100": 17.18,
+                     "fq_mul_n4096": 0.0461, "fq_mul_n1000": 0.0359}
 PROBE_ITERS = 4096
 SLEEP_MS = 50           # device_ms's head start over the host's enqueue
 PROBE_PERMS = 64
+K0_LARGE = 1 << 20      # K0's bytes-bound batch
+BLS_N = 128             # the BLS demo's n (bls_aggregation.rs:93)
 # the TPU kernel each entry point replaces (PERF.md's kernel table)
 KERNEL_IDS = {"fq_mul": "K0", "miller_product": "K1", "miller_product_pair": "K1",
               "final_exp": "K2", "fold_g1": "K3", "fold_g2": "K3",
@@ -656,9 +676,11 @@ def main():
         multiplies = (2 ** w - 1) * b.shape[1] + int(nonzero.sum())
         return FQ12_SQR_PRODUCTS * squarings + FQ12_MUL_PRODUCTS * multiplies
 
-    # K0 inputs: the entry point's batch and an odd one
+    # K0 inputs: the entry point's batch, an odd one, and the bytes-bound
+    # batch drawn on the card (rows 0, 1 and p - 1 first)
     fq_a, fq_b = fq.random_batch(4096, SEED, dev)
     fq_a2, fq_b2 = fq.random_batch(1000, SEED + 1, dev)
+    fq_a3, fq_b3 = fq.uniform_batch(K0_LARGE, SEED, dev)
 
     def k0(x, y):
         return lambda: fq.fq_mul(x, y), lambda: fq.fq_mul_plain(x, y), (x, y)
@@ -691,6 +713,7 @@ def main():
     cases = [
         ("fq_mul_n4096", "fq_mul", *k0_src, *k0(fq_a, fq_b)),
         ("fq_mul_n1000", "fq_mul", *k0_src, *k0(fq_a2, fq_b2)),
+        (f"fq_mul_n{K0_LARGE}", "fq_mul", *k0_src, *k0(fq_a3, fq_b3)),
         ("miller_product", "miller_product", *k1_src, *k1(a, b)),
         ("miller_product_inf", "miller_product", *k1_src, *k1(a_inf, b_inf)),
         ("miller_product_n6", "miller_product", *k1_src, *k1(a_inf[:6], b_inf[:6])),
@@ -858,6 +881,28 @@ def main():
           "ms_one_value": kernel_ms(lambda: transcript.fr_inverse_limbs(one_x))})
     if not inv_ok:
         raise SystemExit("the Fr inverse disagrees with Fermat")
+
+    # K0 on an operand 8 bytes off a 16-byte boundary (its kernel reads
+    # 16-byte vectors; the wrapper must copy it), and K0's floor: an empty
+    # kernel's launch on the same queue (fq.cu sipp_empty_launch)
+    off = torch.empty(fq_a.numel() + 1, dtype=torch.int64, device=dev)[1:].view_as(fq_a)
+    off.copy_(fq_a)
+    off_ok = off.data_ptr() % 16 == 8 and torch.equal(fq.fq_mul(off, fq_b),
+                                                       fq.fq_mul_plain(fq_a, fq_b))
+    lib = _build.cuda_library()
+
+    def empty():
+        _build.check_launch(lib, lib.sipp_empty_launch(torch.cuda.current_stream().cuda_stream),
+                            "empty_launch")
+    empty_launch = {"ms": kernel_ms(empty), "device_ms": device_ms(empty, sleep_cycles)}
+    emit({"phase": "fq_launch_floor", "empty_launch": empty_launch,
+          "fq_mul_n4096_device_ms": table["fq_mul_n4096"]["device_ms"],
+          "above_floor_us": (table["fq_mul_n4096"]["device_ms"]
+                             - empty_launch["device_ms"]) * 1e3,
+          "misaligned_operand_bit_equal": off_ok, "tolerance": 0, "batch": 4096,
+          "card": smi})
+    if not off_ok:
+        raise SystemExit("K0 on an operand off a 16-byte boundary disagrees with its plain version")
 
     # ------------------------------------------------------ 3. aggregation
     z = ate.inner_product(a, b)
@@ -1107,7 +1152,64 @@ def main():
     if not all(checks_e.values()):
         raise SystemExit(f"a path E check failed: {checks_e}")
 
-    # ------------------------------------ 7. K0: the field micro-benchmark
+    # ----------------------------------------------- 7. the BLS app and io
+    from sipp_tpu_torch import io as port_io
+    from sipp_tpu_torch.apps import bls_aggregation as bls
+
+    t = time.time()
+    pks, msgs, sigma = bls.demo_instance(BLS_N)
+    bls_setup_s = time.time() - t
+    (bls_ok, proof_bls), bls_s, launches_bls = driven(
+        lambda: bls.verify_bls_aggregation(pks, msgs, sigma, device=dev))
+    paths["BLS"] = launches_bls
+    needed["BLS"] = ["miller_product", "miller_product_pair", "final_exp", "fold_g1", "fold_g2",
+                     "transcript_append_fq12", "transcript_round_tail", "exp_g1", "exp_g2"]
+    # the app's instance again (host hashes, not timed with the card), for
+    # its digest, the split and the tamper case
+    t = time.time()
+    hs = [bls.hash_to_g2(m) for m in msgs]
+    a_bls = curves.g1_encode(pks + [hostref.g1_neg(params.G1_GEN)], dev)
+    b_bls = curves.g2_encode(hs + [sigma], dev)
+    rehash_s = time.time() - t
+    bls_ip_ms = kernel_ms(lambda: ate.inner_product(a_bls, b_bls), reps=5)
+    z_bls = tower.fq12_decode(ate.inner_product(a_bls, b_bls))
+    proof_o_bls, bls_prove_s, _ = driven(lambda: sipp_prove_onchip(a_bls, b_bls))
+    stmt_bls, bls_verify_s, _ = driven(lambda: sipp_verify(a_bls, b_bls, proof_bls))
+    proof_h_bls = sipp_prove(a_bls, b_bls)
+    bad_ok, _ = bls.verify_bls_aggregation(pks, msgs, hostref.g2_add(sigma, hs[0]), prove=False,
+                                           device=dev)
+    with np.load(GOLDEN) as g:
+        want_inst, want_proof = str(g["bls128_instance_sha256"]), str(g["bls128_proof_sha256"])
+    inst_sha = hashlib.sha256(convert.to_reference(a_bls).tobytes()
+                              + convert.to_reference(b_bls).tobytes()).hexdigest()
+    proof_sha = hashlib.sha256(convert.to_reference(proof_bls).tobytes()).hexdigest()
+    with tempfile.TemporaryDirectory() as d:
+        port_io.save_proof(f"{d}/proof.npz", a_bls, b_bls, proof_bls)
+        a_io, b_io, p_io = port_io.load_proof(f"{d}/proof.npz", dev)
+        stmt_io = sipp_verify(a_io, b_io, p_io)
+        port_io.save_statement(f"{d}/stmt.u32", stmt_io)
+        stmt_file = port_io.load_statement(f"{d}/stmt.u32", BLS_N)
+    checks_bls = {
+        "ok": bls_ok, "aggregate_is_one": z_bls == hostref.FQ12_ONE,
+        "proof_equals_onchip_rerun": torch.equal(proof_o_bls, proof_bls),
+        "host_spine_equals_onchip": np.array_equal(convert.to_reference(proof_h_bls),
+                                                   convert.to_reference(proof_bls)),
+        "statement_z_is_one": stmt_bls.Z == hostref.FQ12_ONE,
+        "tampered_sigma_rejected": not bad_ok,
+        "instance_sha256_equals_jax": inst_sha == want_inst,
+        "proof_sha256_equals_jax": proof_sha == want_proof,
+        "io_roundtrip": (all(x.device == a_bls.device for x in (a_io, b_io, p_io))
+                         and torch.equal(a_io, a_bls) and torch.equal(b_io, b_bls)
+                         and torch.equal(p_io, proof_bls) and stmt_io == stmt_bls
+                         and stmt_file == stmt_bls)}
+    emit({"phase": "bls", "n": BLS_N, "setup_s": bls_setup_s, "app_s": bls_s,
+          "rehash_s": rehash_s, "inner_product_check_ms": bls_ip_ms, "prove_s": bls_prove_s,
+          "verify_s": bls_verify_s, "instance_sha256": inst_sha, "proof_sha256": proof_sha,
+          "launches": launches_bls, "checks": checks_bls, "card": smi})
+    if not all(checks_bls.values()):
+        raise SystemExit(f"a BLS app check failed: {checks_bls}")
+
+    # ------------------------------------ 8. K0: the field micro-benchmark
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench, _, launches_k0 = driven(fq.bench_compare)
@@ -1120,10 +1222,11 @@ def main():
     if not bench["equal"] or missing:
         raise SystemExit(f"K0's entry point disagrees, or a kernel of a path never ran: {missing}")
 
-    # --------------------------------------------------------- 8. summary
+    # --------------------------------------------------------- 9. summary
     # one row per kernel entry point: the numbers of its first case (the
     # paths' shape), the largest error over all its cases, and launches
-    # summed over the driven runs of paths A-E and K0's entry point
+    # summed over the driven runs of paths A-E, BLS and K0's entry point;
+    # K0's row also carries its bytes-bound case and the empty launch
     rows = {}
     for case in table.values():
         counter = case.pop("counter")
@@ -1133,6 +1236,10 @@ def main():
         row["max_abs_err"] = max(row["max_abs_err"], case["max_abs_err"])
     for counter, row in rows.items():
         row["launches"] = sum(launches[counter] for launches in paths.values())
+    large = table[f"fq_mul_n{K0_LARGE}"]
+    rows["fq_mul"].update({f"{k}_n{K0_LARGE}": large[k] for k in ("ms", "device_ms", "plain_ms",
+                                                                  "bound_ms", "bound_by")})
+    rows["fq_mul"]["empty_launch_device_ms"] = empty_launch["device_ms"]
     emit({"kernels": sorted(rows.values(), key=lambda r: r["id"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -313,6 +313,7 @@ def cuda_library(src: pathlib.Path = CUDA_SRC):
         "sipp_fq12_exp": [vp, vp, vp, vp, ci, vp],
         "sipp_fq_mul": [vp, vp, vp, ci, vp],
         "sipp_fq_mul_probe": [vp, vp, ci, vp],
+        "sipp_empty_launch": [vp],
     }.items():
         fn = getattr(lib, name)
         fn.argtypes = args

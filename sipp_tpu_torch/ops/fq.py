@@ -24,8 +24,19 @@ def fq_mul_plain(a, b):
     return FQ.mul(a, b)
 
 
+def _operand(x):
+    """x (contiguous) if it starts on a 16-byte boundary (the kernel reads
+    limb pairs as 16-byte vectors), else a copy that does."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def fq_mul(a, b):
-    """Batched Montgomery product of (B, 16) int64 limb tensors."""
+    """Batched Montgomery product of (B, 16) int64 limb tensors.
+
+    At the entry point's B the wrapper's host work is most of a call, so
+    the launch takes the current stream's raw handle and enters no device
+    context where the operands' device is the current one (else the call
+    repeats itself under one)."""
     if a.shape != b.shape or a.dim() != 2 or a.shape[1] != FQ.L or a.shape[0] < 1:
         raise ValueError(f"fq_mul: expected two (B, {FQ.L}) tensors, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -33,13 +44,16 @@ def fq_mul(a, b):
         return fq_mul_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"fq_mul: unsupported device {a.device}")
-    a = _build.check_cuda_input(a, "a", (FQ.L,))
-    b = _build.check_cuda_input(b, "b", (FQ.L,), a.device)
+    a = _operand(_build.check_cuda_input(a, "a", (FQ.L,)))
+    b = _operand(_build.check_cuda_input(b, "b", (FQ.L,), a.device))
+    dev = a.get_device()
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return fq_mul(a, b)
     lib = _build.cuda_library()
     out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.sipp_fq_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], stream)
+    err = lib.sipp_fq_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
+                          torch._C._cuda_getCurrentRawStream(dev))
     _build.check_launch(lib, err, "fq_mul")
     fq_mul.launches += 1
     return out
@@ -55,6 +69,25 @@ def random_batch(batch: int, seed: int, device):
     xs = [int.from_bytes(rng.bytes(31), "little") % FQ.p for _ in range(batch)]
     ys = [int.from_bytes(rng.bytes(31), "little") % FQ.p for _ in range(batch)]
     return FQ.encode(xs, device), FQ.encode(ys, device)
+
+
+def uniform_batch(batch: int, seed: int, device):
+    """Two (batch, 16) tensors of canonical values drawn on `device` by a
+    torch.Generator seeded with `seed` (a batch of millions in milliseconds,
+    where random_batch's Python ints take minutes): 16-bit limbs with a top
+    limb below p's (0x3064), so every value is below p; rows 0, 1 and 2 of
+    each are the values 0, 1 and p - 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    top = FQ.p >> (16 * (FQ.L - 1))
+    out = []
+    for _ in range(2):
+        x = torch.randint(0, 1 << 16, (batch, FQ.L), generator=gen, device=device)
+        x[:, -1] = torch.randint(0, top, (batch,), generator=gen, device=device)
+        edge = torch.tensor([[(v >> (16 * i)) & 0xFFFF for i in range(FQ.L)]
+                             for v in (0, 1, FQ.p - 1)], device=device)
+        x[:min(batch, 3)] = edge[:batch]
+        out.append(x)
+    return tuple(out)
 
 
 def bench_compare(batch: int = 4096, reps: int = 10):

@@ -1,5 +1,5 @@
-// Host emulation of the CUDA built-ins that the K1-K8 device code uses, so
-// that g++ compiles sipp_tpu_torch/csrc/{miller,fexp,fold,exp,transcript}.cu's
+// Host emulation of the CUDA built-ins that the K0-K8 device code uses, so
+// that g++ compiles sipp_tpu_torch/csrc/{fq,miller,fexp,fold,exp,transcript}.cu's
 // kernels for the CPU: a block runs as host threads, __syncwarp /
 // __syncthreads are barriers of the warp's / block's threads, __shfl_sync and
 // __shfl_xor_sync are a per-warp exchange buffer between two warp barriers,
@@ -15,6 +15,7 @@
 #include <vector>
 
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+struct alignas(16) longlong2 { long long x, y; };
 static thread_local Dim3 threadIdx, blockIdx, blockDim;
 static std::barrier<>* g_warp_barrier[32];
 static std::barrier<>* g_block_barrier;

@@ -1,7 +1,9 @@
-// Runs the kernels' device code (miller.cu, fexp.cu, fold.cu, exp.cu,
+// Runs the kernels' device code (fq.cu, miller.cu, fexp.cu, fold.cu, exp.cu,
 // transcript.cu) and bn254.cuh's Fq arithmetic on the CPU: see sim.h.
 //
 //   sim fq N in out           N pairs (a, b) of 16-limb Fq -> a*b, a+b, a-b, 1/a
+//   sim fq_mul N in out       a, b (N, 16) -> K0's a*b (N, 16), FQ_MUL_TILE
+//                             elements a block
 //   sim fold_g1 N in out      lo, hi (N, 2, 16), bits (254,) -> (N, 2, 16)
 //   sim fold_g2 N in out      lo, hi (N, 2, 2, 16), bits (254,) -> (N, 2, 2, 16)
 //   sim exp_g1 N in out       x, off (N, 2, 16), bits (254, N) -> (N, 2, 16)
@@ -31,6 +33,7 @@
 #include "exp.cu"
 #include "fexp.cu"
 #include "fold.cu"
+#include "fq.cu"
 #include "miller.cu"
 #include "transcript.cu"
 
@@ -55,6 +58,13 @@ int main(int argc, char** argv) {
             fq_inv(r[3], a);
             for (int k = 0; k < 4; k++) fq_store(&out[64 * i + 16 * k], r[k]);
         }
+    } else if (!strcmp(mode, "fq_mul")) {
+        const longlong2* a = reinterpret_cast<const longlong2*>(in.data());
+        const longlong2* b = a + 8 * (size_t)n;
+        out.resize(16 * (size_t)n);
+        longlong2* o = reinterpret_cast<longlong2*>(out.data());
+        for (int blk = 0; blk < (n + FQ_MUL_TILE - 1) / FQ_MUL_TILE; blk++)
+            run_block(blk, FQ_MUL_TILE, [&] { fq_mul_kernel(a, b, o, n); });
     } else if (!strcmp(mode, "round")) {
         out.resize(PSD_W * (size_t)n);
         for (int i = 0; i < n; i++) {

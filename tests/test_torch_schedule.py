@@ -13,10 +13,10 @@ hostref and the JAX package's own schedule, and the stages against curves'
 dbl and add_mixed, on seeded values.
 
 The last tests compile the kernels' device code itself (csrc/bn254.cuh,
-miller.cu, fold.cu, exp.cu, fexp.cu, transcript.cu) with g++ on an emulated
-carry flag, run each block as host threads (tests/host_emulation/sim.h,
+fq.cu, miller.cu, fold.cu, exp.cu, fexp.cu, transcript.cu) with g++ on an
+emulated carry flag, run each block as host threads (tests/host_emulation/sim.h,
 with __shfl_sync as a per-warp exchange buffer), and hold the results
-against the plain versions: K4/K5's permutation against poseidon.permute
+against the plain versions: K0 with a tail block; K4/K5's permutation against poseidon.permute
 (with the pinned table and with a random one loaded through
 SIPP_POSEIDON_RC_FILE), their appends and round tail against
 transcript_*_plain, their Fr inverse against pow(x, r - 2, r).  They need
@@ -37,7 +37,7 @@ import torch
 from sipp_tpu_torch import convert, hostref, params
 from sipp_tpu_torch.curves import G1, G2, scalar_to_bits
 from sipp_tpu_torch.fields import FGL, FQ, poseidon, tower
-from sipp_tpu_torch.ops import _build, exp, fexp, fold, miller, schedule, transcript
+from sipp_tpu_torch.ops import _build, exp, fexp, fold, fq, miller, schedule, transcript
 from sipp_tpu_torch.protocol import transcript_device as td
 from sipp_tpu_torch.pairing import ate
 from sipp_tpu_torch.utils.testing import random_instance
@@ -358,6 +358,22 @@ def test_fq_cc_matches_the_plain_field(sim):
     assert torch.equal(got[:, 1], FQ.add(a, b))
     assert torch.equal(got[:, 2], FQ.sub(a, b))
     assert torch.equal(got[:, 3], FQ.inv(a))
+
+
+@pytest.mark.parametrize("batch", [1, 37, 1000, 4096])
+def test_fq_mul_kernel_emulated_matches_plain(sim, batch):
+    """K0's device code (fq.cu: the shared-memory tile, the tail block)
+    against fq_mul_plain; rows 0, 1 and p - 1 (as limbs and in Montgomery
+    form) among seeded values."""
+    rng = np.random.default_rng(batch)
+    edge = [0, 1, params.P - 1]
+    xs = [int.from_bytes(rng.bytes(40), "little") % params.P for _ in range(2 * batch)]
+    a, b = FQ.encode(xs[:batch]), FQ.encode(xs[batch:])
+    rows = torch.tensor([[(x >> (16 * i)) & 0xFFFF for i in range(16)] for x in edge])
+    for i, row in enumerate(list(rows) + list(FQ.encode(edge))):
+        a[(2 * i) % batch], b[(3 * i + 1) % batch] = row, row
+    got = run_sim(sim, "fq_mul", batch, [a, b]).reshape(batch, 16)
+    assert torch.equal(got, fq.fq_mul_plain(a, b))
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])

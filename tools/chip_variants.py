@@ -9,17 +9,29 @@ through the port's own wrappers (ops/miller.py, fexp.py, exp.py):
   the port did before K7's redesign, instead of a 32-bit word (K1 and K7
   copy K1's tables, K2 and K8 K2's);
 * ``window1``: K8 (exp.cu) with FQ12_EXP_WINDOW 1, the TPU kernel's
-  square-and-multiply, instead of its fixed window.
+  square-and-multiply, instead of its fixed window;
+* ``fq_pr7``: K0 (fq.cu) launching PR 7's kernel (one thread an element
+  reading its own 16 + 16 int64 limbs, 128 elements a block) instead of the
+  shared-memory tile, called through PR 7's wrapper (fq_mul_pr7 below):
+  the "before" of K0's redesign;
+* ``tile256``: K0 with tiles of 256 elements (8 warps a block) instead of
+  32 (a warp), the larger tile that a large B might have wanted.
 
-The variants run in turns (words, bytes, window1, window1, bytes, words) on
-the same inputs: K1 at the aggregation's 128 lanes (seed 1177), K2 at B = 1,
+The chosen variants (all by default) run in turns, in order and then in
+reverse (words, bytes, window1, fq_pr7, tile256, tile256, fq_pr7,
+window1, bytes, words), on
+the same inputs: K0 at B = 4096 (random_batch, seed 1177) and B = 2^20
+(uniform_batch), K1 at the aggregation's 128 lanes (seed 1177), K2 at B = 1,
 K7 on the loop's first carry for digits 0 and 1, and K8 on 14 lanes of
 seeded Fq12 values off the cyclotomic subgroup with seeded 254-bit
 exponents.  Every output is compared with the plain version (tolerance 0).
 A time is read as chip_smoke.py reads it: ``ms`` by CUDA events around one
-wrapper call, ``device_ms`` over launches queued behind a sleep.
+wrapper call, ``device_ms`` over launches queued behind a sleep.  With
+``words`` and ``fq_pr7`` both chosen, K0's wrapper split follows: the
+microseconds a call of each step of PR 7's wrapper (on fq_pr7's library)
+and of ops/fq.py's (on words'), 1,000 calls a step at B = 4096.
 
-    python3 tools/chip_variants.py [--out FILE]
+    python3 tools/chip_variants.py [--variants NAME ...] [--out FILE]
 
 Needs a CUDA card and nvcc; prints one JSON line per variant (its ptxas
 lines) and per (turn, variant, case), then the card's name and power limit.
@@ -42,14 +54,116 @@ import chip_smoke  # noqa: E402  (the timing helpers and the ptxas parser)
 SEED = 1177
 N = 128
 K8_LANES = 14
+SPLIT_CALLS = 1000      # calls a step of K0's wrapper split
+# K0 as PR 7 left it: one thread an element (sipp_fq_mul's first statement
+# launches it, so the tile kernel below it is never reached)
+FQ_PR7 = """
+__global__ void __launch_bounds__(128)
+fq_mul_pr7_kernel(const long long* __restrict__ a, const long long* __restrict__ b,
+                  long long* __restrict__ out, int n) {
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= n) return;
+    Fq x, y;
+    fq_load(x, a + (size_t)e * 16);
+    fq_load(y, b + (size_t)e * 16);
+    fq_mul(x, x, y);
+    fq_store(out + (size_t)e * 16, x);
+}
+
+"""
 PATCHES = {
     "words": [],
     "bytes": [("bn254.cuh", "if (sizeof(T) % 4 == 0 && ", "if (false && ")],
     "window1": [("exp.cu", "#define FQ12_EXP_WINDOW 4\n", "#define FQ12_EXP_WINDOW 1\n")],
+    "fq_pr7": [("fq.cu", "// An empty launch:", FQ_PR7 + "// An empty launch:"),
+               ("fq.cu", "    const cudaStream_t s = (cudaStream_t)stream;\n",
+                "    const cudaStream_t s = (cudaStream_t)stream;\n"
+                "    fq_mul_pr7_kernel<<<(n + 127) / 128, 128, 0, s>>>(\n"
+                "        (const long long*)a, (const long long*)b, (long long*)out, n);\n"
+                "    return (int)cudaGetLastError();\n")],
+    "tile256": [("fq.cu", "#define FQ_MUL_TILE 32 ", "#define FQ_MUL_TILE 256 ")],
 }
-TURNS = ["words", "bytes", "window1", "window1", "bytes", "words"]
 KERNELS = ("miller_product_kernel", "final_exp_kernel", "miller_step_kernel",
-           "fq12_exp_kernel")
+           "fq12_exp_kernel", "fq_mul")
+
+
+def fq_mul_pr7(a, b):
+    """K0's wrapper as PR 7 left it (ops/fq.py before its host work was
+    cut): two check_cuda_input calls, a device context, the stream of the
+    tensor's device; it counts no launch."""
+    import torch
+    from sipp_tpu_torch.fields import FQ
+    from sipp_tpu_torch.ops import _build
+
+    if a.shape != b.shape or a.dim() != 2 or a.shape[1] != FQ.L or a.shape[0] < 1:
+        raise ValueError("fq_mul_pr7: expected two (B, 16) tensors")
+    if a.device.type != "cuda":
+        raise ValueError(f"fq_mul_pr7: unsupported device {a.device}")
+    a = _build.check_cuda_input(a, "a", (FQ.L,))
+    b = _build.check_cuda_input(b, "b", (FQ.L,), a.device)
+    lib = _build.cuda_library()
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.sipp_fq_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], stream)
+    _build.check_launch(lib, err, "fq_mul")
+    return out
+
+
+def wrapper_split(a, b, lib_pr7, lib_now, calls=SPLIT_CALLS):
+    """Microseconds a call of each step of K0's wrappers, PR 7's
+    (fq_mul_pr7, launching from lib_pr7) and ops/fq.py's (fq.fq_mul, from
+    lib_now), each step alone over `calls` calls on the host clock, the
+    card synchronized before and after; the launches' own steps enqueue
+    the kernel on the current stream."""
+    import time
+
+    import torch
+    from sipp_tpu_torch.ops import _build, fq
+
+    dev = a.device
+    out = torch.empty_like(a)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "shape_checks": lambda: (a.shape != b.shape or a.dim() != 2 or a.shape[1] != 16
+                                 or a.shape[0] < 1 or a.device.type != "cuda"),
+        "check_cuda_input_a": lambda: _build.check_cuda_input(a, "a", (16,)),
+        "check_cuda_input_b": lambda: _build.check_cuda_input(b, "b", (16,), dev),
+        "cuda_library": _build.cuda_library,
+        "empty_like": lambda: torch.empty_like(a),
+        "pr7_device_context": device_context,
+        "pr7_current_stream_of_device": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "ctypes_call_and_launch": lambda: lib_now.sipp_fq_mul(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], stream),
+        "check_launch": lambda: _build.check_launch(lib_now, 0, "fq_mul"),
+        "now_aligned_operands": lambda: (fq._operand(a), fq._operand(b)),
+        "now_current_device": torch.cuda.current_device,
+        "now_raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "wrapper_pr7": lambda: fq_mul_pr7(a, b),
+        "wrapper_now": lambda: fq.fq_mul(a, b),
+    }
+    library = {"wrapper_pr7": lib_pr7, "wrapper_now": lib_now}
+    build = _build.cuda_library
+    split = {}
+    try:
+        for name, fn in steps.items():
+            if name in library:
+                _build.cuda_library = lambda lib=library[name]: lib
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            split[name] = (time.perf_counter() - t) / calls * 1e6
+            torch.cuda.synchronize()
+    finally:
+        _build.cuda_library = build
+    return split
 
 
 def variant_source(name):
@@ -73,13 +187,16 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=pathlib.Path, default=None,
                         help="also write the JSON lines to this file")
+    parser.add_argument("--variants", nargs="+", choices=list(PATCHES), default=list(PATCHES),
+                        help="the variants to build and time (default: all)")
     args = parser.parse_args()
+    turns = args.variants + args.variants[::-1]
     if not torch.cuda.is_available():
         raise SystemExit("chip_variants: torch.cuda.is_available() is False; this needs a GPU")
     from sipp_tpu_torch import params
     from sipp_tpu_torch.fields import tower
     from sipp_tpu_torch.curves import scalar_to_bits
-    from sipp_tpu_torch.ops import _build, exp, fexp, miller
+    from sipp_tpu_torch.ops import _build, exp, fexp, fq, miller
     from sipp_tpu_torch.pairing import ate
     from sipp_tpu_torch.utils.testing import random_instance
 
@@ -98,7 +215,7 @@ def main():
 
     build = _build.cuda_library
     libs = {}
-    for name in PATCHES:
+    for name in args.variants:
         libs[name] = build(variant_source(name))
         ptxas = chip_smoke.ptxas_entries(_build.BUILD_INFO["log"])
         emit({"variant": name, "build_s": _build.BUILD_INFO["seconds"],
@@ -117,7 +234,16 @@ def main():
     ks = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(K8_LANES)]
     bits8 = torch.as_tensor(np.stack([scalar_to_bits(k) for k in ks], 1).astype(np.int64),
                             device=dev)
+    k0 = {"fq_mul_n4096": fq.random_batch(4096, SEED, dev),
+          "fq_mul_n1048576": fq.uniform_batch(1 << 20, SEED, dev)}
+
+    def k0_case(x, y):
+        """K0 through the wrapper of the variant's time: PR 7's for fq_pr7."""
+        return (lambda: (fq_mul_pr7 if name == "fq_pr7" else fq.fq_mul)(x, y),
+                lambda: fq.fq_mul_plain(x, y))
+
     cases = {
+        **{name: k0_case(*xy) for name, xy in k0.items()},
         "miller_product": (lambda: miller.miller_product(a, b), lambda: f_one),
         "final_exp_b1": (lambda: fexp.final_exp(f_one[None]),
                          lambda: fexp.final_exp_plain(f_one[None])),
@@ -135,7 +261,7 @@ def main():
 
     ok = True
     try:
-        for turn, name in enumerate(TURNS):
+        for turn, name in enumerate(turns):
             _build.cuda_library = lambda: libs[name]
             for case, (kern, _) in cases.items():
                 got = flat(kern())
@@ -146,6 +272,10 @@ def main():
                       "device_ms": chip_smoke.device_ms(kern, sleep_cycles)})
     finally:
         _build.cuda_library = build
+    if "fq_pr7" in libs and "words" in libs:
+        emit({"wrapper_split_us": wrapper_split(*k0["fq_mul_n4096"], libs["fq_pr7"],
+                                                libs["words"]),
+              "calls": SPLIT_CALLS, "batch": 4096})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(lines) + "\n")

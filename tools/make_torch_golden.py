@@ -60,11 +60,24 @@ device format (16 x 16-bit Montgomery limbs):
   step_f{d}, step_t{d}
                    pallas_miller.miller_step(d, ...) on that carry, d = 0, 1,
                    2, in interpret mode (K7's own Pallas kernel)
+  bls4_a, bls4_b, bls4_proof
+                   the BLS aggregation instance of tests/test_bls.py (3
+                   signatures from default_rng(7), then -G1 and sigma: n = 4)
+                   and the proof of verify_bls_aggregation on the CPU
+  bls128_instance_sha256, bls128_proof_sha256
+                   SHA-256 (hex) of the BLS demo's n = 128 instance
+                   (bls_aggregation.main's default_rng(0) stream; the bytes
+                   of A then B, C-order uint32) and of sipp_prove's proof of
+                   it on the CPU, which chip_smoke.py checks on the card
 
-Each stage runs in its own process, two at a time.  Usage (about twenty
-minutes on the CPU, most of it the XLA compile of the on-chip stage):
+Each stage runs in its own process, two at a time.  Usage (about half an
+hour on the CPU, most of it the XLA compiles of the on-chip stage and of
+the n = 128 prove):
 
-    JAX_PLATFORMS=cpu PYTHONPATH= python tools/make_torch_golden.py
+    JAX_PLATFORMS=cpu PYTHONPATH= python tools/make_torch_golden.py [--only STAGE ...]
+
+--only runs the named stages and keeps every other array of the existing
+file as it is.
 """
 
 import os
@@ -330,11 +343,47 @@ def stage_onchip(g):
     g["onchip_state4"] = np.asarray(tr.state, dtype=np.uint64)
 
 
+def bls_instance(n, rng):
+    """The BLS demo's instance of n - 1 signatures from rng (keys, then
+    messages, as bls_aggregation.main and tests/test_bls.py draw them):
+    A = pks || -G1, B = H(m) || sigma, as uint32 limb arrays."""
+    from sipp_tpu import hostref
+    from sipp_tpu.apps import bls_aggregation as BLS
+    from sipp_tpu.curves import g1_encode, g2_encode
+
+    keys = [BLS.keygen(rng) for _ in range(n - 1)]
+    msgs = [(int.from_bytes(rng.bytes(31), "little"), int.from_bytes(rng.bytes(31), "little"))
+            for _ in range(n - 1)]
+    sigma = BLS.aggregate([BLS.sign(sk, m) for (sk, _), m in zip(keys, msgs)])
+    a = g1_encode([pk for _, pk in keys] + [hostref.g1_neg(params.G1_GEN)])
+    b = g2_encode([BLS.hash_to_g2(m) for m in msgs] + [sigma])
+    return keys, msgs, sigma, u32(a), u32(b)
+
+
+def stage_bls(g):
+    from sipp_tpu.apps import bls_aggregation as BLS
+
+    keys, msgs, sigma, a, b = bls_instance(4, np.random.default_rng(7))
+    ok, proof = BLS.verify_bls_aggregation([pk for _, pk in keys], msgs, sigma)
+    assert ok
+    g.update(bls4_a=a, bls4_b=b, bls4_proof=u32(proof))
+
+
+def stage_bls128(g):
+    import hashlib
+
+    _, _, _, a, b = bls_instance(128, np.random.default_rng(0))
+    log("bls128 instance built")
+    proof = u32(sipp_prove(a, b))
+    g["bls128_instance_sha256"] = np.array(hashlib.sha256(a.tobytes() + b.tobytes()).hexdigest())
+    g["bls128_proof_sha256"] = np.array(hashlib.sha256(proof.tobytes()).hexdigest())
+
+
 # Each stage runs in its own process: XLA:CPU runs out of memory maps when
 # one process compiles every program of the list.  (stage, inputs it needs)
 STAGES = [("onchip", ()), ("miller", ()), ("pair", ()), ("fold", ()), ("prove", ()),
           ("fexp", ("pair", "miller")), ("verify", ("prove",)), ("transcript", ()),
-          ("exp", ()), ("msm_inf", ()), ("miller_step", ())]
+          ("exp", ()), ("msm_inf", ()), ("miller_step", ()), ("bls", ()), ("bls128", ())]
 
 
 def run_stage(name, tmp):
@@ -353,15 +402,19 @@ def run_stage(name, tmp):
     log(f"stage {name} done")
 
 
-def main():
+def main(only=()):
     import subprocess
     import tempfile
 
+    todo = [(name, deps) for name, deps in STAGES if not only or name in only]
+    if only and (set(only) - {name for name, _ in todo}
+                 or any(set(deps) - set(only) for _, deps in todo)):
+        raise SystemExit(f"--only: unknown stages, or stages whose inputs are not listed: {only}")
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = pathlib.Path(tmpdir)
         done, running = set(), {}
-        while len(done) < len(STAGES):
-            for name, deps in STAGES:
+        while len(done) < len(todo):
+            for name, deps in todo:
                 if (name not in done and name not in running and len(running) < 2
                         and set(deps) <= done):
                     running[name] = subprocess.Popen(
@@ -374,7 +427,10 @@ def main():
                     del running[name]
             time.sleep(1)
         g = {}
-        for name, _ in STAGES:
+        if only:
+            with np.load(OUT) as d:
+                g.update({k: d[k] for k in d.files})
+        for name, _ in todo:
             with np.load(tmp / f"{name}.npz") as d:
                 g.update({k: d[k] for k in d.files})
     OUT.parent.mkdir(parents=True, exist_ok=True)
@@ -385,5 +441,7 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--stage":
         run_stage(sys.argv[2], pathlib.Path(sys.argv[3]))
+    elif len(sys.argv) > 2 and sys.argv[1] == "--only":
+        main(sys.argv[2:])
     else:
         main()
