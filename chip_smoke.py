@@ -20,6 +20,8 @@ and K8 (per-lane Fq12 exp):
   BLS. the BLS aggregation app at n = 128 (127 signatures of the demo's
      default_rng(0) stream): the aggregate check (K1 + K2), the on-chip
      prove and the default verify (MSM finals);
+  sharded. the sharded prover (parallel/sharded.py) on four shards: K1 in
+     both modes and K3 a shard, K2 on the lead card;
   K0. the field micro-benchmark entry point ops/fq.bench_compare.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
@@ -100,8 +102,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      out of the card's numbers), prove_s and verify_s; then io: the proof
      saved, loaded onto the card and verified, its statement saved and
      loaded, all equal;
-  8. K0's entry point, counted: its timing line and equality;
-  9. the kernel table (one row per kernel entry point, K0-K8; K0's row also
+  8. the sharded prover sipp_prove_sharded, counted (path sharded), on
+     Mesh((cuda:0,) * 4): four shards that the script puts on one card by
+     naming it four times (make_mesh never repeats a card): 5 sharded
+     rounds and a gathered tail of 2; its proof must equal paths A's and
+     B's byte for byte and verify, and its K1/K2/K3 launches must be the
+     shard count's (Z: 4 K1 and 1 K2; a round: 4 pair-mode K1, 4 K3-G1, 4
+     K3-G2, 1 K2; a tail round: one of each); its wall seconds beside
+     sipp_prove's and sipp_prove_onchip's (steady: the median of three
+     runs), and the card's idle share over one sharded prove
+     (torch.profiler).  With two or more cards visible
+     it runs again on make_mesh over 2 or 4 distinct cards, counted as path
+     sharded_cards, its first run (which creates the other cards'
+     contexts) apart from the median of three more; on one card the line
+     says that part was skipped;
+  9. the bucket MSMs (ops/msm.py msm_bucket, msm_bucket_sharded on the
+     four-shard mesh), G1 and G2, with the MSM finals' 254-bit scalars of
+     the n = 128 proof and 8-bit windows: plain PyTorch, no kernel (their
+     counters must stay 0), equal to K6 + msm_finish on the same inputs,
+     their wall seconds beside K6's and msm_finish's, and each group's
+     split into buckets, window combine and to_affine;
+ 10. K0's entry point, counted: its timing line and equality;
+ 11. the kernel table (one row per kernel entry point, K0-K8; K0's row also
      with its 2^20 case's times and bound and the empty launch's), the
      card's name and power limit (nvidia-smi), and the last line
      {"ok": true, "device": {...}}.
@@ -187,6 +209,8 @@ SLEEP_MS = 50           # device_ms's head start over the host's enqueue
 PROBE_PERMS = 64
 K0_LARGE = 1 << 20      # K0's bytes-bound batch
 BLS_N = 128             # the BLS demo's n (bls_aggregation.rs:93)
+SHARDS = 4              # the sharded phase's mesh: four shards on one card
+BUCKET_C = 8            # the bucket MSMs' window bits
 # the TPU kernel each entry point replaces (PERF.md's kernel table)
 KERNEL_IDS = {"fq_mul": "K0", "miller_product": "K1", "miller_product_pair": "K1",
               "final_exp": "K2", "fold_g1": "K3", "fold_g2": "K3",
@@ -1209,7 +1233,89 @@ def main():
     if not all(checks_bls.values()):
         raise SystemExit(f"a BLS app check failed: {checks_bls}")
 
-    # ------------------------------------ 8. K0: the field micro-benchmark
+    # -------------------------- 8. the sharded prover (parallel/sharded.py)
+    from sipp_tpu_torch.parallel import Mesh, make_mesh, sipp_prove_sharded
+
+    one_card = Mesh((dev,) * SHARDS)          # four shards on one card, named so
+    proof_sh, sharded_s, launches_sh = driven(lambda: sipp_prove_sharded(a, b, one_card))
+    paths["sharded"] = launches_sh
+    needed["sharded"] = ["miller_product", "miller_product_pair", "final_exp", "fold_g1",
+                         "fold_g2"]
+    # Z: a K1 launch a shard and one K2; each round while n > d: a pair-mode
+    # K1, a K3-G1 and a K3-G2 launch a shard and one K2; the tail's log2(d)
+    # rounds on the lead card: one of each
+    rounds_sh, tail_sh = LOGN - SHARDS.bit_length() + 1, SHARDS.bit_length() - 1
+    want_sh = {"miller_product": SHARDS, "miller_product_pair": SHARDS * rounds_sh + tail_sh,
+               "final_exp": 1 + rounds_sh + tail_sh, "fold_g1": SHARDS * rounds_sh + tail_sh,
+               "fold_g2": SHARDS * rounds_sh + tail_sh}
+    steady_sh = statistics.median(driven(lambda: sipp_prove_sharded(a, b, one_card))[1]
+                                  for _ in range(3))
+    idle_sh = idle_share(lambda: sipp_prove_sharded(a, b, one_card))
+    stmt_sh = sipp_verify(a, b, proof_sh)
+    checks_sh = {"equals_host_spine": torch.equal(proof_sh, proof_h),
+                 "equals_onchip": torch.equal(proof_sh, proof_o),
+                 "verified": stmt_sh == stmt_msm,
+                 "launches_match_shards": all(launches_sh[k] == v for k, v in want_sh.items())}
+    cards = torch.cuda.device_count()
+    distinct = 1 << (min(4, cards).bit_length() - 1)
+    line_cards = {"distinct_cards_run": "skipped: one card visible" if distinct < 2 else distinct}
+    if distinct >= 2:
+        mesh_cards = make_mesh(distinct)
+        # the first run also creates the other cards' contexts and loads
+        # the kernels there; the steady time is the median of three more
+        proof_c, cards_first_s, launches_c = driven(lambda: sipp_prove_sharded(a, b, mesh_cards))
+        cards_s = statistics.median(driven(lambda: sipp_prove_sharded(a, b, mesh_cards))[1]
+                                    for _ in range(3))
+        paths["sharded_cards"] = launches_c
+        checks_sh["distinct_cards_equal"] = torch.equal(proof_c.to(dev), proof_h)
+        line_cards.update(distinct_cards_first_s=cards_first_s, distinct_cards_steady_s=cards_s,
+                          distinct_cards_launches=launches_c)
+    emit({"phase": "sharded", "n": N, "shards": SHARDS, "distinct_cards": 1,
+          "rounds_sharded": rounds_sh, "rounds_tail": tail_sh, "prove_s": sharded_s,
+          "steady_prove_s": steady_sh, "sipp_prove_steady_s": steady["prove_host_s"],
+          "sipp_prove_onchip_steady_s": steady["prove_onchip_s"], "launches": launches_sh,
+          "launches_expected": want_sh, "idle": idle_sh, **line_cards, "checks": checks_sh,
+          "card": smi})
+    if not all(checks_sh.values()):
+        raise SystemExit(f"a sharded prover check failed: {checks_sh}")
+
+    # ------------------------------------ 9. the bucket MSMs (ops/msm.py)
+    bucket, bucket_s, bucket_launches = {}, {}, {}
+    for name, curve, pts, bits in (("g1", G1, a, ba), ("g2", G2, b, bb)):
+        bucket[name], bucket_s[name], bucket_launches[name] = driven(
+            lambda: curve.to_affine(msm.msm_bucket(curve, pts, bits, BUCKET_C)[None]))
+        bucket[f"{name}_sharded"], bucket_s[f"{name}_sharded"], _ = driven(
+            lambda: curve.to_affine(msm.msm_bucket_sharded(curve, pts, bits, one_card,
+                                                           BUCKET_C)[None]))
+    # where a bucket MSM's time goes: every window's buckets (sort, scan,
+    # gather), the suffix sums + tree + Horner combine, the final to_affine
+    split_mb = {}
+    for name, curve, pts, bits in (("g1", G1, a, ba), ("g2", G2, b, bb)):
+        stamps = [time.time()]
+        buckets = msm._window_buckets(curve, pts, msm._digits(bits, BUCKET_C), BUCKET_C)
+        torch.cuda.synchronize()
+        stamps.append(time.time())
+        acc = msm._horner_windows(curve, buckets, BUCKET_C)
+        torch.cuda.synchronize()
+        stamps.append(time.time())
+        curve.to_affine(acc[None])
+        torch.cuda.synchronize()
+        stamps.append(time.time())
+        split_mb[name] = dict(zip(("buckets_s", "horner_s", "to_affine_s"),
+                                  np.diff(stamps).tolist()))
+    checks_mb = {"g1_equals_k6_msm_finish": torch.equal(bucket["g1"], fa),
+                 "g2_equals_k6_msm_finish": torch.equal(bucket["g2"], fb),
+                 "g1_sharded_equals_k6_msm_finish": torch.equal(bucket["g1_sharded"], fa),
+                 "g2_sharded_equals_k6_msm_finish": torch.equal(bucket["g2_sharded"], fb),
+                 "no_kernel_launched": not any(v for c in bucket_launches.values()
+                                               for v in c.values())}
+    emit({"phase": "msm_bucket", "n": N, "c": BUCKET_C, "bits": 254, "shards": SHARDS,
+          "wall_s": bucket_s, "split": split_mb, "k6_both_groups_ms": k6_ms, "msm_finish_both_groups_ms": tree_ms,
+          "checks": checks_mb, "card": smi})
+    if not all(checks_mb.values()):
+        raise SystemExit(f"a bucket MSM check failed: {checks_mb}")
+
+    # ----------------------------------- 10. K0: the field micro-benchmark
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench, _, launches_k0 = driven(fq.bench_compare)
@@ -1222,10 +1328,11 @@ def main():
     if not bench["equal"] or missing:
         raise SystemExit(f"K0's entry point disagrees, or a kernel of a path never ran: {missing}")
 
-    # --------------------------------------------------------- 9. summary
+    # -------------------------------------------------------- 11. summary
     # one row per kernel entry point: the numbers of its first case (the
     # paths' shape), the largest error over all its cases, and launches
-    # summed over the driven runs of paths A-E, BLS and K0's entry point;
+    # summed over the driven runs of paths A-E, BLS, the sharded prover and
+    # K0's entry point;
     # K0's row also carries its bytes-bound case and the empty launch
     rows = {}
     for case in table.values():

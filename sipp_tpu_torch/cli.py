@@ -6,16 +6,15 @@ flags (sipp_tpu/cli.py) and --device (default cuda: the card).
     python -m sipp_tpu_torch.cli bls    --n 8
 
 Proof and statement files are the JAX package's (io.py), so either CLI
-verifies the other's proofs.  The sharded prover (--devices > 1) is not
-ported yet: asking for it exits non-zero rather than proving on one card.
+verifies the other's proofs.  prove --devices d (d > 1) runs the sharded
+prover (parallel/sharded.py) on a mesh of d shards: d distinct cards from
+--device's index on CUDA, or d CPU shards with --device cpu; too few cards
+exit non-zero with the mesh's message.
 """
 
 import argparse
 import sys
 import time
-
-SHARDED_NOT_PORTED = ("--devices {}: the sharded prover is not ported yet (ROADMAP.md "
-                      "Queue 1, item 3: multi-GPU parallel/); use --devices 1")
 
 
 def main(argv=None):
@@ -59,10 +58,20 @@ def main(argv=None):
 
         cfg = SippConfig(n=args.n, num_devices=args.devices, seed=args.seed)
         if cfg.num_devices > 1:
-            sys.exit(SHARDED_NOT_PORTED.format(cfg.num_devices))
+            from .parallel import make_mesh, sipp_prove_sharded
+
+            try:
+                mesh = make_mesh(cfg.num_devices, device)
+            except RuntimeError as e:
+                sys.exit(str(e))
+
+            def prove(a, b):
+                return sipp_prove_sharded(a, b, mesh)
+        else:
+            prove = sipp_prove_onchip if device.type == "cuda" else sipp_prove
         a, b_ = random_instance(cfg.n, seed=cfg.seed, device=device)
         t0 = time.time()
-        proof = (sipp_prove_onchip if device.type == "cuda" else sipp_prove)(a, b_)
+        proof = prove(a, b_)
         sync()
         print(f"proved n={cfg.n} in {time.time()-t0:.2f}s", file=sys.stderr)
         io.save_proof(args.out, a, b_, proof)

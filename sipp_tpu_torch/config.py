@@ -10,7 +10,7 @@ import dataclasses
 @dataclasses.dataclass
 class SippConfig:
     n: int = 128                 # pairing vector length (power of two)
-    num_devices: int = 1         # mesh size for the sharded prover (not ported)
+    num_devices: int = 1         # mesh size for the sharded prover
     seed: int = 0                # instance seed (testing/benching)
 
     def __post_init__(self):

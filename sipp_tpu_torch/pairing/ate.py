@@ -18,8 +18,9 @@ them):
 
 Kernel paths: inner_product (K1 miller_product + K2 final_exp; with
 SIPP_WHOLE_LOOP=0, miller_loop_fused's 65 K7 step launches + the plain tail
-and product tree + K2) and cross_products (one K1 launch in pair mode + one
-K2 launch at B = 2, whatever SIPP_WHOLE_LOOP says, as in the JAX package).
+and product tree + K2) and cross_products (cross_miller's one K1 launch in
+pair mode + one K2 launch at B = 2, whatever SIPP_WHOLE_LOOP says, as in the
+JAX package).
 """
 
 import functools
@@ -241,13 +242,22 @@ def inner_product(a_g1, b_g2):
     return fexp.final_exp(f[None])[0]
 
 
-def cross_products(a_lo, a_hi, b_lo, b_hi):
-    """A fold round's (Z_L, Z_R) = (e-prod(A_hi, B_lo), e-prod(A_lo, B_hi)):
-    Z_L's pairs on even lanes and Z_R's on odd lanes of ONE pair-mode K1
-    launch, then both final exps in ONE K2 launch at B = 2.  (2, 2,3,2, L)."""
-    from ..ops import fexp, miller
+def cross_miller(a_lo, a_hi, b_lo, b_hi):
+    """The Miller products (before the final exponentiation) of a fold
+    round's cross pairs, (A_hi, B_lo) on even lanes and (A_lo, B_hi) on odd
+    lanes of ONE pair-mode K1 launch.  (2, 2,3,2, L)."""
+    from ..ops import miller
 
     m = a_lo.shape[0]
     p = torch.stack([a_hi, a_lo], dim=1).reshape(2 * m, *a_lo.shape[1:])
     q = torch.stack([b_lo, b_hi], dim=1).reshape(2 * m, *b_lo.shape[1:])
-    return fexp.final_exp(miller.miller_product(p, q, pair=True))
+    return miller.miller_product(p, q, pair=True)
+
+
+def cross_products(a_lo, a_hi, b_lo, b_hi):
+    """A fold round's (Z_L, Z_R) = (e-prod(A_hi, B_lo), e-prod(A_lo, B_hi)):
+    cross_miller's one pair-mode K1 launch, then both final exps in ONE K2
+    launch at B = 2.  (2, 2,3,2, L)."""
+    from ..ops import fexp
+
+    return fexp.final_exp(cross_miller(a_lo, a_hi, b_lo, b_hi))

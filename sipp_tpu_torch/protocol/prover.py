@@ -52,29 +52,42 @@ def sipp_prove(a_g1, b_g2, return_transcript=False):
     limbs, one device).  Returns the proof (2 log2(n) + 1, 2, 3, 2, 16) in
     verifier pop order, on the inputs' device, and with return_transcript
     also the final host Transcript."""
-    n = check_shapes(a_g1, b_g2)
+    check_shapes(a_g1, b_g2)
     tr = prologue(a_g1, b_g2)
 
     z = ate.inner_product(a_g1, b_g2)
     proof = [z]
     tr.append_fq12(tower.fq12_decode(z))
-
-    a, b = a_g1, b_g2
-    while n > 1:
-        m = n // 2
-        zs = ate.cross_products(a[:m], a[m:], b[:m], b[m:])
-        z_l, z_r = tower.fq12_decode(zs)
-        proof += [zs[0], zs[1]]
-        tr.append_fq12(z_l)
-        tr.append_fq12(z_r)
-        x = tr.get_challenge()
-        x_inv = pow(x, -1, params.R)
-        a = fold.fold_g1(a[:m], a[m:], scalar_to_bits(x))
-        b = fold.fold_g2(b[:m], b[m:], scalar_to_bits(x_inv))
-        n = m
+    host_rounds(a_g1, b_g2, tr, proof)
 
     proof.reverse()
     return (torch.stack(proof), tr) if return_transcript else torch.stack(proof)
+
+
+def append_cross(tr, proof, zs):
+    """A round's (Z_L, Z_R), (2, 2,3,2, L): onto the proof and the host
+    transcript.  Returns the challenge's MSB-first bits for the folds,
+    (x, x^-1)."""
+    z_l, z_r = tower.fq12_decode(zs)
+    proof += [zs[0], zs[1]]
+    tr.append_fq12(z_l)
+    tr.append_fq12(z_r)
+    x = tr.get_challenge()
+    return scalar_to_bits(x), scalar_to_bits(pow(x, -1, params.R))
+
+
+def host_rounds(a, b, tr, proof):
+    """The host-spine fold rounds from (a, b) down to one pair, appending
+    each round's (Z_L, Z_R) to `proof` and to the host transcript `tr`
+    (sipp_prove's rounds, and the sharded prover's gathered tail)."""
+    n = a.shape[0]
+    while n > 1:
+        m = n // 2
+        bits_x, bits_xinv = append_cross(tr, proof,
+                                         ate.cross_products(a[:m], a[m:], b[:m], b[m:]))
+        a = fold.fold_g1(a[:m], a[m:], bits_x)
+        b = fold.fold_g2(b[:m], b[m:], bits_xinv)
+        n = m
 
 
 def onchip_rounds(a_g1, b_g2, state, round_times=None):

@@ -8,8 +8,6 @@ array and byte is held to the JAX package's, tolerance 0."""
 import dataclasses
 import os
 import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -22,7 +20,6 @@ from sipp_tpu_torch import cli, convert, io
 from sipp_tpu_torch.protocol import SIPPStatement, VerificationError
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "torch_port.npz"
-ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,18 +36,11 @@ def golden():
         return {k: g[k] for k in ("a4", "b4", "proof4", "stmt4")}
 
 
-def run_cli(*args):
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    return subprocess.run([sys.executable, "-m", "sipp_tpu_torch.cli", *args], env=env,
-                          capture_output=True, text=True, timeout=1200, cwd=ROOT)
-
-
 def test_cli_prove_verify(tmp_path, golden, capsys):
     """The CLI's prove command: the proof file loads through
     sipp_tpu.io.load_proof as the golden arrays, the proof that
     test_jax_written_proof_verifies_in_port verifies through the CLI's
-    verify command (one verify of the n = 4 golden instance for both;
-    test_sharded_prover_is_refused runs the CLI through `python -m`)."""
+    verify command (one verify of the n = 4 golden instance for both)."""
     proof = str(tmp_path / "p.npz")
     cli.main(["prove", "--n", "4", "--seed", "7", "--out", proof, "--device", "cpu"])
     assert proof in capsys.readouterr().out
@@ -116,12 +106,28 @@ def test_load_rejects_non_canonical_proof(tmp_path, golden):
         jio.load_proof(str(tmp_path / "bad.npz"))
 
 
-def test_sharded_prover_is_refused():
-    """--devices > 1 exits non-zero naming the roadmap item, before any
-    instance is built: the sharded prover is not ported."""
-    r = run_cli("prove", "--n", "4", "--devices", "2", "--device", "cpu")
-    assert r.returncode != 0
-    assert "not ported" in r.stderr and "Queue 1, item 3" in r.stderr
+def test_sharded_prover_writes_the_same_file(tmp_path, golden, capsys):
+    """prove --devices 2 --device cpu runs the sharded prover on two CPU
+    shards and writes the file that --devices 1 writes: the golden arrays,
+    which test_cli_prove_verify holds the --devices 1 file to (and which
+    the JAX package's verifier accepts: golden stage verify)."""
+    proof = str(tmp_path / "p2.npz")
+    cli.main(["prove", "--n", "4", "--seed", "7", "--devices", "2", "--out", proof,
+              "--device", "cpu"])
+    assert proof in capsys.readouterr().out
+    with np.load(proof) as got:
+        assert sorted(got.files) == ["a", "b", "proof", "version"]
+        for key, name in (("a", "a4"), ("b", "b4"), ("proof", "proof4")):
+            assert got[key].dtype == np.uint32 and np.array_equal(got[key], golden[name])
+
+
+def test_sharded_prover_needs_distinct_cards(monkeypatch):
+    """--devices 4 where one card is visible exits non-zero with the mesh's
+    message, before any instance is built: it never proves on one card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match=r"4 CUDA card\(s\) from cuda:0 asked for, 1 visible"):
+        cli.main(["prove", "--n", "4", "--devices", "4"])
 
 
 @pytest.mark.parametrize("kwargs", [{"n": 3}, {"n": 0}, {"num_devices": 0}])

@@ -69,6 +69,12 @@ device format (16 x 16-bit Montgomery limbs):
                    (bls_aggregation.main's default_rng(0) stream; the bytes
                    of A then B, C-order uint32) and of sipp_prove's proof of
                    it on the CPU, which chip_smoke.py checks on the card
+  sharded8_a, sharded8_b, sharded8_proof
+                   random_instance(8, seed=5) (the instance of
+                   tests/test_sharding.py) and its proof: sipp_prove's;
+                   stages sharded8_d2 and sharded8_d4 check that
+                   sipp_prove_sharded on make_mesh(2) and make_mesh(4), over
+                   forced host devices, gives the same proof
 
 Each stage runs in its own process, two at a time.  Usage (about half an
 hour on the CPU, most of it the XLA compiles of the on-chip stage and of
@@ -86,6 +92,10 @@ import sys
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# host devices for the sharded stage's meshes (as tests/conftest.py forces)
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=4").strip()
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax  # noqa: E402
@@ -379,11 +389,26 @@ def stage_bls128(g):
     g["bls128_proof_sha256"] = np.array(hashlib.sha256(proof.tobytes()).hexdigest())
 
 
+def stage_sharded8(g):
+    a, b = random_instance(8, seed=5)
+    g.update(sharded8_a=u32(a), sharded8_b=u32(b), sharded8_proof=u32(sipp_prove(a, b)))
+
+
+def stage_sharded8_mesh(d, deps):
+    """Checks, writes nothing: the JAX sharded prover on d forced host
+    devices gives stage sharded8's proof."""
+    from sipp_tpu.parallel import make_mesh, sipp_prove_sharded
+
+    proof = sipp_prove_sharded(deps["sharded8_a"], deps["sharded8_b"], make_mesh(d))
+    assert np.array_equal(u32(proof), deps["sharded8_proof"]), d
+
+
 # Each stage runs in its own process: XLA:CPU runs out of memory maps when
 # one process compiles every program of the list.  (stage, inputs it needs)
 STAGES = [("onchip", ()), ("miller", ()), ("pair", ()), ("fold", ()), ("prove", ()),
           ("fexp", ("pair", "miller")), ("verify", ("prove",)), ("transcript", ()),
-          ("exp", ()), ("msm_inf", ()), ("miller_step", ()), ("bls", ()), ("bls128", ())]
+          ("exp", ()), ("msm_inf", ()), ("miller_step", ()), ("bls", ()), ("bls128", ()),
+          ("sharded8", ()), ("sharded8_d2", ("sharded8",)), ("sharded8_d4", ("sharded8",))]
 
 
 def run_stage(name, tmp):
@@ -396,6 +421,8 @@ def run_stage(name, tmp):
         stage_fexp(g, deps["pair_f"], deps["f4"], deps["f2"])
     elif name == "verify":
         stage_verify(g, deps["proof4"])
+    elif name.startswith("sharded8_d"):
+        stage_sharded8_mesh(int(name[len("sharded8_d"):]), deps)
     else:
         globals()[f"stage_{name}"](g)
     np.savez(tmp / f"{name}.npz", **g)
