@@ -3,14 +3,17 @@
 Drives the port's paths at n = 128 on the seed-1177 instance, through the
 hand-written CUDA kernels K0 (batched Fq multiply), K1 (Miller product, both
 modes), K2 (final exponentiation), K3 (fold ladders), K4/K5 (transcript tail
-and Z append), K6 (per-lane exp ladders, G1 and G2), K7 (one Miller step)
-and K8 (per-lane Fq12 exp):
+and Z append), K6 (per-lane exp ladders, G1 and G2), K7 (one Miller step),
+K8 (per-lane Fq12 exp), and the two kernels that replace XLA programs of
+the JAX verifier: X1 (the G2 r-torsion verdicts of every verify's entry
+validation) and X2 (the sum of the MSM finals' lanes, G1 and G2):
 
   A. the host-spine sipp_prove -> sipp_verify with fold ladders
      (SIPP_VERIFY_MSM=0);
   B. the on-chip prover sipp_prove_onchip;
   C. sipp_verify with MSM-form finals: its default on the card, the verify
-     of the README quick-start;
+     of the README quick-start (every verify also queues X1 from
+     check_instance_async; the MSM finals run K6, then X2);
   D. the per-step Miller engine (SIPP_WHOLE_LOOP=0): the aggregation,
      sipp_prove and the fold-form sipp_verify with 65 K7 launches per
      Miller loop, then the plain tail and product tree, then K2;
@@ -57,7 +60,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      lanes; K8 at the verifier's 14 rows of a proof with their challenge
      bits, on 14 seeded lanes off the cyclotomic subgroup (a forged proof's
      rows) with the same bits, and at 100 lanes with all-zero bits, offsets
-     of one and x = 1;
+     of one and x = 1; X1 on the instance's B at 128 lanes and at 100 lanes
+     with raw map points (off the r-torsion), points of the cofactor's
+     order and infinity lanes (0 exactly on the forged lanes); X2 on K6's
+     output at the MSM finals' 128 lanes, G1 and G2, and at 100 lanes with
+     a repeated lane that the chain doubles, a lane that cancels the sum,
+     infinity lanes and a cancelling pair (also against the sum of the
+     lanes on the host);
      K0 at 4096, 1000 and 2^20 elements (the last drawn on the card by
      fq.uniform_batch, rows 0, 1 and p - 1 first), with an empty kernel's
      launch beside it, the floor of any launch; K3 at 128 lanes (dead lanes, a dead lo
@@ -73,7 +82,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   3. the n = 128 aggregation Z = FE(prod Miller(A_i, B_i)) must hash to the
      JAX reference's digest, then its steady-state time on distinct inputs;
   4. paths A, B and C, each with the launch counters set to 0 just before it
-     and read just after (every kernel of a path must have run): the on-chip
+     and read just after (every kernel of a path must have run; X1 once a
+     verify, in paths A, C, D, E and BLS, and X2 once a group a verify with
+     MSM finals, in C, E and BLS): the on-chip
      proof must equal the host-spine proof byte for byte with equal final
      transcript states, the MSM and fold verifiers must return equal
      statements, a tampered proof must be rejected by both; then, counted
@@ -83,7 +94,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      verify_s, the MSM finals split (K6 against tree sum + to_affine), the
      device idle share over one prove of each prover (torch.profiler), and
      the n = 4 golden proof and statement of tests/golden/torch_port.npz
-     from both provers and both verifiers, byte for byte;
+     from both provers and both verifiers, byte for byte; then entry
+     validation: the curve and r-torsion verdicts queued under
+     set_sync_debug_mode("error") (validate.queue_verdicts, what
+     check_instance_async runs after its limb checks), check_instance_async's
+     enqueue and finish() times, sipp_verify on the card rejecting an
+     off-curve A, an off-twist B and a B off the r-torsion with the words
+     that check_instance_async gives on the CPU, the default verify's
+     split (sipp_verify(split=...): validation enqueue, host replay and Z'
+     chain, finals, final aggregation, the wait in finish(); three runs)
+     and the card's idle share over one default verify (torch.profiler);
   5. path D, counted the same way: the digest again, its steady time, the
      proof of path A byte for byte and path A's statement; one Miller loop's
      65 K7 launches and tail under set_sync_debug_mode("error"); the split
@@ -123,7 +143,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      their wall seconds beside K6's and msm_finish's, and each group's
      split into buckets, window combine and to_affine;
  10. K0's entry point, counted: its timing line and equality;
- 11. the kernel table (one row per kernel entry point, K0-K8; K0's row also
+ 11. the kernel table (one row per kernel entry point, K0-K8, X1, X2; K0's row also
      with its 2^20 case's times and bound and the empty launch's), the
      card's name and power limit (nvidia-smi), and the last line
      {"ok": true, "device": {...}}.
@@ -147,8 +167,11 @@ u64 Goldilocks, the message encode, and for K4's challenge two Fr products
 and the word rows of the inverse's Montgomery division by 2^k, k counted
 on this run's challenge by the host's model of the kernel's binary
 extended Euclid, whose subtract-and-shift steps multiply nothing); the
-plain version works on 16-bit Goldilocks limbs in Montgomery form.  No PyTorch call computes any of
-these functions, so library_ms is null.
+plain version works on 16-bit Goldilocks limbs in Montgomery form.  For X1
+they are the plain ladder's products; for X2 the least the sum needs, an
+incomplete mixed add for each live lane but the first and to_affine's
+products (the plain tree also doubles beside every addition).  No PyTorch
+call computes any of these functions, so library_ms is null.
 
 Usage, from the root of a checkout (the first run builds the kernels with
 nvcc into sipp_tpu_torch/build/):
@@ -215,7 +238,9 @@ BUCKET_C = 8            # the bucket MSMs' window bits
 KERNEL_IDS = {"fq_mul": "K0", "miller_product": "K1", "miller_product_pair": "K1",
               "final_exp": "K2", "fold_g1": "K3", "fold_g2": "K3",
               "transcript_round_tail": "K4", "transcript_append_fq12": "K5",
-              "exp_g1": "K6", "exp_g2": "K6", "miller_step": "K7", "fq12_exp": "K8"}
+              "exp_g1": "K6", "exp_g2": "K6", "miller_step": "K7", "fq12_exp": "K8",
+              "g2_torsion": "X1", "msm_sum_g1": "X2", "msm_sum_g2": "X2"}
+FORGED_LANE = 5         # the lane of the forged instances that sipp_verify rejects
 
 
 def emit(obj):
@@ -455,11 +480,13 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a GPU")
     from sipp_tpu_torch import convert, curves, hostref, native, params
     from sipp_tpu_torch.curves import G1, G2, scalar_to_bits
-    from sipp_tpu_torch.fields import FGL, tower
+    from sipp_tpu_torch.fields import FGL, FQ, tower
+    from sipp_tpu_torch.apps.bls_aggregation import map_to_g2_without_cofactor_mul
     from sipp_tpu_torch.ops import _build, exp, fexp, fold, fq, miller, msm, transcript
+    from sipp_tpu_torch.ops import validate as x1
     from sipp_tpu_torch.pairing import ate
     from sipp_tpu_torch.protocol import (VerificationError, prover, sipp_prove,
-                                         sipp_prove_onchip, sipp_verify, verifier)
+                                         sipp_prove_onchip, sipp_verify, validate, verifier)
     from sipp_tpu_torch.protocol import transcript as host_transcript
     from sipp_tpu_torch.utils.testing import random_instance
 
@@ -734,6 +761,57 @@ def main():
 
     k3_g1 = ("fold.cu", "sipp_tpu/ops/pallas_fold.py:210")
     k3_g2 = ("fold.cu", "sipp_tpu/ops/pallas_fold.py:221")
+
+    # X1 inputs: the instance's B at 128 lanes; and 100 lanes with raw map
+    # points (on the twist, off the r-torsion), points of the cofactor's
+    # order ([r] of a raw point) and infinity lanes
+    raw = [map_to_g2_without_cofactor_mul((1234 + i, 5678)) for i in range(3)]
+    forged_b = b[:E].clone()
+    raw_lanes, cofactor_lanes, inf_lanes = [8, 60, 99], [9, 61], [10, 62]
+    forged_b[raw_lanes] = curves.g2_encode(raw, dev)
+    forged_b[cofactor_lanes] = curves.g2_encode(
+        [hostref.g2_mul_raw(pt, params.R) for pt in raw[:2]], dev)
+    forged_b[inf_lanes] = 0
+    x1_src = ("validate.cu", "sipp_tpu/protocol/validate.py:90")
+
+    def x1_case(pts):
+        return (lambda: x1.g2_torsion(pts), lambda: x1.g2_torsion_plain(pts), (pts,))
+
+    # X2 inputs: K6's output at the MSM finals' 128 lanes (the verifier's
+    # call); and 100 lanes with a repeated lane that the chain doubles
+    # (P, P), then -[2]P (the sum back at infinity), infinity lanes, a
+    # cancelling pair (Q, -Q) and a lane repeated far from its twin
+    k6_out = {"g1": exp.exp_g1(a, zeros_a, msm_a), "g2": exp.exp_g2(b, zeros_b, msm_b)}
+
+    def x2_edge(curve, pts):
+        lanes = pts[:E].clone()
+        lanes[1] = lanes[0]
+        lanes[2] = curve.neg(curve.to_affine(curve.dbl(curve.jac_from_affine(lanes[0:1]))))[0]
+        lanes[[3, 40, 77]] = 0
+        lanes[5] = curve.neg(lanes[4:5])[0]
+        lanes[90] = lanes[6]
+        return lanes
+
+    x2_lanes = {"msm_sum_g1": k6_out["g1"], "msm_sum_g2": k6_out["g2"],
+                "msm_sum_g1_edge_n100": x2_edge(G1, a), "msm_sum_g2_edge_n100": x2_edge(G2, b)}
+    x2_src = ("msm.cu", "sipp_tpu/protocol/verifier.py:35")
+
+    def x2_case(name):
+        lanes, curve = x2_lanes[name], G2 if "g2" in name else G1
+        kern = msm.msm_sum_g2 if curve is G2 else msm.msm_sum_g1
+        return (lambda: kern(lanes), lambda: msm.msm_finish_plain(curve, lanes), (lanes,))
+
+    def x2_products(name):
+        """Fq products of the sum's least work: an incomplete mixed add for
+        each live lane but the first (3 Fq products an Fq2 product in G2),
+        and to_affine, counted on the plain version."""
+        lanes, curve = x2_lanes[name], G2 if "g2" in name else G1
+        live = int((~curve.is_affine_infinity(lanes)).sum())
+        with count_products() as counts:
+            curve.to_affine(curve.lift(lanes[:1]))
+        per_fq2 = 3 if curve is G2 else 1
+        return ADD_MIXED_PRODUCTS * per_fq2 * max(live - 1, 0) + counts[16] // 3
+
     cases = [
         ("fq_mul_n4096", "fq_mul", *k0_src, *k0(fq_a, fq_b)),
         ("fq_mul_n1000", "fq_mul", *k0_src, *k0(fq_a2, fq_b2)),
@@ -782,12 +860,16 @@ def main():
         ("fq12_exp_n14", "fq12_exp", *k8_src, *k8(k8_x, k8_one, k8_bits)),
         ("fq12_exp_forged_n14", "fq12_exp", *k8_src, *k8(k8_forged, k8_one, k8_bits)),
         ("fq12_exp_edge_n100", "fq12_exp", *k8_src, *k8(e8_x, e8_off, e8_bits)),
+        ("g2_torsion", "g2_torsion", *x1_src, *x1_case(b)),
+        ("g2_torsion_forged_n100", "g2_torsion", *x1_src, *x1_case(forged_b)),
+        *((name, name.split("_edge")[0], *x2_src, *x2_case(name)) for name in x2_lanes),
     ]
     skipped = {"exp_g1": k6_skipped(a, msm_a), "exp_g2": 3 * k6_skipped(b, msm_b),
                "exp_g1_edge_n100": k6_skipped(ex1, edge_bits),
                "exp_g2_edge_n100": 3 * k6_skipped(ex2, edge_bits)}
     chain = {"fq12_exp_n14": k8_products(k8_bits), "fq12_exp_forged_n14": k8_products(k8_bits),
-             "fq12_exp_edge_n100": k8_products(e8_bits)}
+             "fq12_exp_edge_n100": k8_products(e8_bits),
+             **{name: x2_products(name) for name in x2_lanes}}
     table = {}
     for name, counter, src, replaces, kern, plain, inputs in cases:
         got = kern()
@@ -869,6 +951,19 @@ def main():
     if not torch.equal(ate.product_tree(ate.miller_loop_fused(a_inf, b_inf)),
                        miller.miller_product(a_inf, b_inf)):
         raise SystemExit("the per-step Miller loop with infinity lanes differs from K1")
+    # X1's forged lanes: 0 exactly on the lanes off the r-torsion
+    bad_lanes = torch.nonzero(x1.g2_torsion(forged_b) == 0).flatten().tolist()
+    if bad_lanes != sorted(raw_lanes + cofactor_lanes) or not bool(x1.g2_torsion(b).all()):
+        raise SystemExit(f"X1 flagged lanes {bad_lanes}, not exactly the forged ones")
+    # X2's edge lanes against hostref: the sum of the lanes on the host
+    for name, add, dec in (("msm_sum_g1_edge_n100", hostref.g1_add, curves.g1_decode),
+                           ("msm_sum_g2_edge_n100", hostref.g2_add, curves.g2_decode)):
+        want_sum = None
+        for pt in dec(x2_lanes[name]):
+            want_sum = add(want_sum, pt)
+        got_sum = dec(msm.msm_finish(G2 if "g2" in name else G1, x2_lanes[name]))[0]
+        if got_sum != want_sum:
+            raise SystemExit(f"{name} differs from the sum of its lanes on the host")
 
 
     # the digest -> challenge step of K4 on digests with zero digits
@@ -957,7 +1052,10 @@ def main():
                 (exp.exp_g2, "launches", "exp_g2"),
                 (miller.miller_step, "launches", "miller_step"),
                 (exp.fq12_exp, "launches", "fq12_exp"),
-                (fq.fq_mul, "launches", "fq_mul")]
+                (fq.fq_mul, "launches", "fq_mul"),
+                (x1.g2_torsion, "launches", "g2_torsion"),
+                (msm.msm_sum_g1, "launches", "msm_sum_g1"),
+                (msm.msm_sum_g2, "launches", "msm_sum_g2")]
 
     def driven(fn):
         """Run fn with every launch counter set to 0 just before; returns
@@ -987,10 +1085,14 @@ def main():
         stmt_msm, verify_msm_s, launches_c = driven(lambda: sipp_verify(a, b, proof_o))
     launches_a = {k: launches_a1[k] + launches_a2[k] for k in launches_a1}
     paths = {"A": launches_a, "B": launches_b, "C": launches_c}
-    needed = {"A": ["miller_product", "miller_product_pair", "final_exp", "fold_g1", "fold_g2"],
+    needed = {"A": ["miller_product", "miller_product_pair", "final_exp", "fold_g1", "fold_g2",
+                    "g2_torsion"],
               "B": ["miller_product", "miller_product_pair", "final_exp", "fold_g1", "fold_g2",
                     "transcript_append_fq12", "transcript_round_tail"],
-              "C": ["miller_product", "final_exp", "exp_g1", "exp_g2"]}
+              "C": ["miller_product", "final_exp", "exp_g1", "exp_g2", "g2_torsion",
+                    "msm_sum_g1", "msm_sum_g2"]}
+    # one X1 launch a verify; two X2 launches a verify with MSM finals
+    per_verify = {"A": (1, 0), "C": (1, 1), "E": (1, 1), "BLS": (1, 1), "D": (1, 0)}
     same_proof = np.array_equal(convert.to_reference(proof_o), convert.to_reference(proof_h))
     same_state = tr_o.state == tr_h.state
     bad = proof_o.clone()
@@ -1028,12 +1130,9 @@ def main():
     ba, bb = (torch.as_tensor(v, device=dev) for v in verifier.msm_bits(xs_run, N))
     k6_ms = kernel_ms(lambda: (exp.exp_g1(a, zeros_a, ba), exp.exp_g2(b, zeros_b, bb)), reps=3)
     lanes_a, lanes_b = exp.exp_g1(a, zeros_a, ba), exp.exp_g2(b, zeros_b, bb)
-    torch.cuda.synchronize()
-    t = time.time()
-    fa = msm.msm_finish(G1, lanes_a)
-    fb = msm.msm_finish(G2, lanes_b)
-    torch.cuda.synchronize()
-    tree_ms = (time.time() - t) * 1e3
+    x2_ms = kernel_ms(lambda: (msm.msm_finish(G1, lanes_a), msm.msm_finish(G2, lanes_b)),
+                      reps=3)
+    fa, fb = msm.msm_finish(G1, lanes_a), msm.msm_finish(G2, lanes_b)
     finals_ok = (curves.g1_decode(fa)[0], curves.g2_decode(fb)[0]) == \
         (stmt_msm.final_A, stmt_msm.final_B)
     idle = {"host_spine": idle_share(lambda: sipp_prove(a, b)),
@@ -1043,7 +1142,7 @@ def main():
           "verify_msm_s": verify_msm_s, "steady": steady,
           "fold_round_latency_ms_n128": fold_round_ms,
           "round_ms": [t * 1e3 for t in round_times],
-          "msm_finals_k6_ms": k6_ms, "msm_finals_tree_affine_ms": tree_ms,
+          "msm_finals_k6_ms": k6_ms, "msm_finals_x2_ms": x2_ms,
           "onchip_equals_host_spine": same_proof, "transcript_states_equal": same_state,
           "rounds_without_host_sync": no_sync, "statements_equal": stmt_msm == stmt_fold,
           "msm_finals_split_agrees": finals_ok, "tampered_rejected_msm": rejected_msm,
@@ -1067,6 +1166,68 @@ def main():
     emit({"phase": "golden_n4", "equal": same4})
     if not all(same4.values()):
         raise SystemExit("the n = 4 golden proof or statement was not reproduced")
+
+    # ------------------------- 4b. entry validation and the verify_s split
+    # the verdicts are queued with no host sync (queue_verdicts is what
+    # check_instance_async runs after its limb checks, which sync)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        side, verdicts = validate.queue_verdicts(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    side.synchronize()                  # the verdicts are the side stream's
+    queued_ok = all(bool(v.all()) for v in verdicts)
+    torch.cuda.synchronize()
+    t = time.time()
+    finish = validate.check_instance_async(a, b)
+    enqueue_s = time.time() - t
+    t = time.time()
+    finish()
+    finish_s = time.time() - t
+
+    def raised(fn):
+        try:
+            fn()
+        except VerificationError as e:
+            return str(e)
+        return ""
+
+    # forged instances: sipp_verify on the card must reject each with the
+    # words that check_instance_async gives on the CPU for its first 8 lanes
+    one = FQ.encode(1, dev)
+    a_off, b_off, b_sub = a.clone(), b.clone(), b.clone()
+    a_off[FORGED_LANE, 1] = FQ.add(a[FORGED_LANE, 1], one)            # y + 1
+    b_off[FORGED_LANE, 1, 0] = FQ.add(b[FORGED_LANE, 1, 0], one)
+    b_sub[FORGED_LANE] = curves.g2_encode(raw[:1], dev)[0]
+    forged = {}
+    for name, (fa_, fb_) in {"off_curve_a": (a_off, b), "off_twist_b": (a, b_off),
+                             "outside_subgroup_b": (a, b_sub)}.items():
+        forged[name] = {
+            "card": raised(lambda: sipp_verify(fa_, fb_, proof_o)),
+            "cpu": raised(lambda: validate.check_instance_async(fa_[:8].cpu(), fb_[:8].cpu())())}
+    forged_ok = all(v["card"] == v["cpu"] != "" for v in forged.values())
+    # where a default verify's time goes (MSM finals; sipp_verify's split:
+    # with it the finals end in a synchronize), and the card's idle share
+    splits = []
+    for _ in range(3):
+        sp = {}
+        torch.cuda.synchronize()
+        t = time.time()
+        stmt_sp = sipp_verify(a, b, proof_o, split=sp)
+        sp["total_s"] = time.time() - t
+        splits.append(sp)
+    split_median = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
+    idle_verify = idle_share(lambda: sipp_verify(a, b, proof_o))
+    emit({"phase": "validation", "n": N, "verdicts_queued_without_host_sync": queued_ok,
+          "check_instance_async_enqueue_s": enqueue_s, "finish_s": finish_s,
+          "forged_messages": forged, "verify_split": splits,
+          "verify_split_median": split_median, "idle_default_verify": idle_verify,
+          "card": smi})
+    if not (queued_ok and forged_ok and stmt_sp == stmt_msm):
+        raise SystemExit("a validation check failed: verdicts synced or were not all 1, a "
+                         "forged instance was not rejected with the CPU's words, or the "
+                         "split verify's statement differs")
 
     # ------------------------------ 5. path D: the per-step Miller engine
     with setenv("SIPP_WHOLE_LOOP", "0"):
@@ -1120,7 +1281,8 @@ def main():
         split_ok = torch.equal(f, z)
     launches_d = {k: launches_d0[k] + launches_d1[k] + launches_d2[k] for k in launches_d0}
     paths["D"] = launches_d
-    needed["D"] = ["miller_step", "miller_product_pair", "final_exp", "fold_g1", "fold_g2"]
+    needed["D"] = ["miller_step", "miller_product_pair", "final_exp", "fold_g1", "fold_g2",
+                   "g2_torsion"]
     checks_d = {"digest": digest_d == REF_DIGEST and torch.equal(zz_d, zz),
                 "proof_equals_path_a": torch.equal(proof_d, proof_h),
                 "statement_equals_path_a": stmt_d == stmt_fold,
@@ -1164,7 +1326,8 @@ def main():
         z_u = native.fq12_mul(z_u, native.fq12_pow(proof_u[i], e))
     z_chain_native_ms = (time.time() - t) * 1e3
     paths["E"] = launches_e
-    needed["E"] = ["fq12_exp", "miller_product", "final_exp", "exp_g1", "exp_g2"]
+    needed["E"] = ["fq12_exp", "miller_product", "final_exp", "exp_g1", "exp_g2", "g2_torsion",
+                   "msm_sum_g1", "msm_sum_g2"]
     checks_e = {"statement_equals_path_c": stmt_e == stmt_msm, "tampered_rejected": rejected_e,
                 "z_chain_equals_native": z_chain_host == native.fq12_u64_to_tower_ints(z_u)
                 and z_chain_host == stmt_e.final_Z, **{f"golden_n4_{k}": v
@@ -1187,7 +1350,8 @@ def main():
         lambda: bls.verify_bls_aggregation(pks, msgs, sigma, device=dev))
     paths["BLS"] = launches_bls
     needed["BLS"] = ["miller_product", "miller_product_pair", "final_exp", "fold_g1", "fold_g2",
-                     "transcript_append_fq12", "transcript_round_tail", "exp_g1", "exp_g2"]
+                     "transcript_append_fq12", "transcript_round_tail", "exp_g1", "exp_g2",
+                     "g2_torsion", "msm_sum_g1", "msm_sum_g2"]
     # the app's instance again (host hashes, not timed with the card), for
     # its digest, the split and the tamper case
     t = time.time()
@@ -1310,7 +1474,7 @@ def main():
                  "no_kernel_launched": not any(v for c in bucket_launches.values()
                                                for v in c.values())}
     emit({"phase": "msm_bucket", "n": N, "c": BUCKET_C, "bits": 254, "shards": SHARDS,
-          "wall_s": bucket_s, "split": split_mb, "k6_both_groups_ms": k6_ms, "msm_finish_both_groups_ms": tree_ms,
+          "wall_s": bucket_s, "split": split_mb, "k6_both_groups_ms": k6_ms, "x2_both_groups_ms": x2_ms,
           "checks": checks_mb, "card": smi})
     if not all(checks_mb.values()):
         raise SystemExit(f"a bucket MSM check failed: {checks_mb}")
@@ -1325,8 +1489,12 @@ def main():
           "kernel_s": bench["kernel"], "equal": bench["equal"],
           "printed": out.getvalue().splitlines(), "launches": launches_k0["fq_mul"], "card": smi})
     missing = [(p, k) for p, ks in needed.items() for k in ks if paths[p][k] < 1]
+    missing += [(p, k, paths[p][k]) for p, (n1, n2) in per_verify.items()
+                for k, want in (("g2_torsion", n1), ("msm_sum_g1", n2), ("msm_sum_g2", n2))
+                if paths[p][k] != want]
     if not bench["equal"] or missing:
-        raise SystemExit(f"K0's entry point disagrees, or a kernel of a path never ran: {missing}")
+        raise SystemExit(f"K0's entry point disagrees, or a kernel of a path never ran or "
+                         f"ran other than once a verify: {missing}")
 
     # -------------------------------------------------------- 11. summary
     # one row per kernel entry point: the numbers of its first case (the

@@ -18,10 +18,9 @@
 // add.  As the TPU kernel does, every step computes the addition and each
 // lane commits it or not on its own bit, as data (add_staged's `take`), so
 // the warp never diverges around a __syncwarp: 254 x (3 + 5) stages.  The
-// complete add of the offset is the staged addition, then, on lanes where
-// it met P == Q (accumulator not at infinity, offset not at infinity,
-// H = R = 0), the staged doubling of the offset, which the other lanes do
-// not commit; P == -Q gives Z3 = Z H = 0, infinity, by itself.
+// complete add of the offset is ladder.cuh's add_complete_staged: the
+// staged addition, then, on lanes where it met P == Q, the staged doubling
+// of the offset; P == -Q gives Z3 = Z H = 0, infinity, by itself.
 #include <cuda_runtime.h>
 
 #include "fq12_table.cuh"
@@ -32,7 +31,6 @@ __global__ void __launch_bounds__(FOLD_LANES * FOLD_GROUP)
 exp_kernel(const long long* __restrict__ xs, const long long* __restrict__ offs,
            const long long* __restrict__ bits, long long* __restrict__ out, int n) {
     __shared__ FoldLane<F> lanes[FOLD_LANES];
-    __shared__ bool doubled[FOLD_LANES];
     const int sub = threadIdx.x % FOLD_GROUP;
     const int lane = blockIdx.x * FOLD_LANES + threadIdx.x / FOLD_GROUP;
     const bool live = lane < n;
@@ -53,19 +51,7 @@ exp_kernel(const long long* __restrict__ xs, const long long* __restrict__ offs,
         dbl_staged<F>(L, sub, true);
         add_staged<F>(L, L.hx, L.hy, sub, live && bits[(size_t)i * n + lane] != 0);
     }
-    // the complete add of the offset
-    const bool acc_finite = !F::is_zero(L.Z);
-    add_staged<F>(L, L.lx, L.ly, sub, true);
-    if (sub == 0) {
-        const bool same = acc_finite && !(F::is_zero(L.lx) && F::is_zero(L.ly))
-                          && F::is_zero(L.s[11]) && F::is_zero(L.s[12]);
-        if (same) {
-            L.X = L.lx; L.Y = L.ly; F::one(L.Z);
-        }
-        doubled[threadIdx.x / FOLD_GROUP] = same;
-    }
-    __syncwarp();
-    dbl_staged<F>(L, sub, doubled[threadIdx.x / FOLD_GROUP]);
+    add_complete_staged<F>(L, L.lx, L.ly, sub, true);
     if (sub == 0 && live) store_affine<F>(out + base, L);
 }
 

@@ -1,7 +1,8 @@
-// The staged Jacobian doubling and mixed addition of the curve ladders K3
-// (fold.cu: lo + [x] hi, one shared scalar) and K6 (exp.cu: off_i + [k_i]
-// x_i, a scalar per lane), over G1 (Fq) and G2 (Fq2), one definition for
-// both kernels.
+// The staged Jacobian doubling, mixed addition and complete mixed addition
+// of the curve ladders K3 (fold.cu: lo + [x] hi, one shared scalar), K6
+// (exp.cu: off_i + [k_i] x_i, a scalar per lane), X1 (validate.cu: [r]Q per
+// lane) and the chain of X2 (msm.cu: the sum of the lanes), over G1 (Fq)
+// and G2 (Fq2), one definition for every kernel.
 //
 // What bounds a ladder on the H100: latency.  A fold round has 64 to 1 live
 // lanes and the MSM finals 128, so the grid fills a few SMs at most, and
@@ -34,8 +35,15 @@
 //   warp never diverges around a barrier.
 // * the affine conversion runs on thread 0 of the group: its Fermat
 //   inversion, ~380 dependent Fq products, is a ladder's serial floor.
+// * the complete addition (add_complete_staged: K6's offset, X1's ladder,
+//   X2's chain) is the staged addition, then the staged doubling of the
+//   addend where the addition met P == Q; the doubling's stages run only
+//   where a lane of the warp needs them (a vote), so a chain that never
+//   meets P == Q (every honest one) pays the 5 stages of the addition.
 // ops/schedule.py (dbl_staged, add_mixed_staged) is the plain version of
-// these stages, checked against curves' own by tests/test_torch_schedule.py.
+// these stages, checked against curves' own by tests/test_torch_schedule.py;
+// the complete addition is held against curves' add_mixed(p, q, dbl(q))
+// there, emulated.
 #pragma once
 #include "bn254.cuh"
 
@@ -166,10 +174,10 @@ static __device__ __noinline__ void dbl_staged(FoldLane<F>& L, int sub, bool tak
     __syncwarp();
 }
 
-// acc += (qx, qy) affine, incomplete (no P == Q case: the ladders never
-// meet it); acc at infinity gives q, q all-zero (infinity) leaves acc, and
-// so does a false `take` (read on thread 0).  H and R stay in s[11], s[12]
-// for K6's complete add.
+// acc += (qx, qy) affine, incomplete (no P == Q case: the fold and exp
+// ladders never meet it); acc at infinity gives q, q all-zero (infinity)
+// leaves acc, and so does a false `take` (read on thread 0).  H and R stay
+// in s[11], s[12] for add_complete_staged.
 // s: 0 ZZ, 1 T1 = qy Z, 2 U2 = qx ZZ, 3 S2 = T1 ZZ, 4 HH = H^2, 5 RR = R^2,
 // 6 Z3 = Z H, 7 HHH = H HH, 8 V = X HH, 9 R (V - X3), 10 Y HHH,
 // 11 H = U2 - X, 12 R = S2 - Y; X3 = RR - HHH - 2V
@@ -211,6 +219,33 @@ static __device__ __noinline__ void add_staged(FoldLane<F>& L, const typename F:
         }
     }
     __syncwarp();
+}
+
+// acc += (qx, qy) affine, complete (curves' add_mixed(acc, q, dbl(q))): the
+// staged addition, then, on lanes where the accumulator and q are finite
+// and H = R = 0 (P == Q), the staged doubling of q, committed there only;
+// P == -Q gives Z3 = Z H = 0, infinity, by itself.  A false `take` commits
+// nothing.  Every thread of a lane's group computes `same` from the lane's
+// slots, and the doubling's 3 stages run only where a lane of the warp
+// needs them (__any_sync, uniform over the warp, so no thread skips a
+// __syncwarp that another one reaches).
+template <class F>
+static __device__ __noinline__ void add_complete_staged(FoldLane<F>& L, const typename F::T& qx,
+                                                        const typename F::T& qy, int sub,
+                                                        bool take) {
+    const bool acc_finite = !F::is_zero(L.Z);
+    add_staged<F>(L, qx, qy, sub, take);
+    const bool same = take && acc_finite && !(F::is_zero(qx) && F::is_zero(qy))
+                      && F::is_zero(L.s[11]) && F::is_zero(L.s[12]);
+    if (__any_sync(0xffffffffu, same)) {
+        if (sub == 0 && same) {
+            L.X = qx;
+            L.Y = qy;
+            F::one(L.Z);
+        }
+        __syncwarp();
+        dbl_staged<F>(L, sub, same);
+    }
 }
 
 // Jacobian -> affine (x, y) of the accumulator, infinity -> (0, 0), stored

@@ -4,7 +4,8 @@ Two libraries, both plain C interfaces loaded with ctypes:
 
 * the CUDA kernels (K0 batched Fq multiply, K1 Miller product, K2 final
   exponentiation, K3 fold ladders, K4/K5 transcript tail, K6 per-lane exp
-  ladders, K7 Miller step, K8 per-lane Fq12 exp):
+  ladders, K7 Miller step, K8 per-lane Fq12 exp, X1 G2 r-torsion verdicts,
+  X2 the sum of the MSM finals' lanes):
   sipp_tpu_torch/csrc/*.cu with their headers, compiled by nvcc for sm_90a,
   one nvcc process per source, all started together, then linked; with
   three generated headers of constants derived from params/hostref,
@@ -34,7 +35,8 @@ import torch
 PKG = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "build"
 CUDA_SRC = PKG / "csrc"
-CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu", "transcript.cu", "exp.cu", "fq.cu")
+CUDA_SOURCES = ("miller.cu", "fexp.cu", "fold.cu", "transcript.cu", "exp.cu", "fq.cu",
+                "validate.cu", "msm.cu")
 CUDA_HEADERS = ("bn254.cuh", "fq12_table.cuh", "ladder.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -113,6 +115,8 @@ def params_header() -> str:
     lines.append(f"#define MILLER_PARTIAL_LIMBS {PARTIAL_LIMBS}")
     text = "\n".join(lines) + "\n"
     text += _arr("BN_PM2", "uint32_t", "[8]", _words(P - 2))
+    text += f"#define BN_R_NBITS {params.R.bit_length()}\n"
+    text += _arr("BN_R", "uint32_t", "[8]", _words(params.R))
     text += _arr("BN_NAF", "signed char", f"[{len(naf)}]", naf)
     text += _arr("BN_TWF", "uint32_t", "[2][2][8]",
                  [w for c in (hostref.TWIST_FROB_X, hostref.TWIST_FROB_Y)
@@ -313,6 +317,9 @@ def cuda_library(src: pathlib.Path = CUDA_SRC):
         "sipp_fq12_exp": [vp, vp, vp, vp, ci, vp],
         "sipp_fq_mul": [vp, vp, vp, ci, vp],
         "sipp_fq_mul_probe": [vp, vp, ci, vp],
+        "sipp_g2_torsion": [vp, vp, ci, vp],
+        "sipp_msm_sum_g1": [vp, vp, ci, vp],
+        "sipp_msm_sum_g2": [vp, vp, ci, vp],
         "sipp_empty_launch": [vp],
     }.items():
         fn = getattr(lib, name)

@@ -1,10 +1,15 @@
 """Multi-scalar multiplication sum_i [k_i] P_i (port of sipp_tpu/ops/msm.py),
-in plain PyTorch.
+in plain PyTorch, and X2, the sum of the MSM finals' lanes (csrc/msm.cu).
 
-Ladder form (_tree_sum, msm): one 254-step per-lane ladder over all n
+Ladder form (tree_sum, msm): one 254-step per-lane ladder over all n
 points at once (curves' scalar_mul_per_lane), then a log2(n) tree of
 complete additions.  The verifier's MSM finals run the ladder as kernel K6
-(ops/exp.py) and finish with msm_finish.
+(ops/exp.py) and finish with msm_finish: kernel X2 (msm_sum_g1,
+msm_sum_g2) for CUDA tensors, replacing the XLA _tree_sum + to_affine of
+sipp_tpu/protocol/verifier.py:_finals_msm_dev (no Pallas counterpart), and
+msm_finish_plain, the complete-add tree and to_affine, for CPU tensors;
+there is no other route.  Bound on the H100 and design: see the note at
+the top of csrc/msm.cu.
 
 Fixed-window bucket form (msm_bucket, msm_bucket_sharded): per c-bit window
 the points are sorted by digit, a segmented scan sums each bucket, and the
@@ -20,6 +25,7 @@ infinity are the all-zero affine encoding and enter through curves' lift
 import torch
 
 from ..curves import G1, G2
+from . import _build
 
 
 def tree_sum(curve, pts):
@@ -47,9 +53,52 @@ def msm_g2(points_aff, bits):
     return msm(G2, points_aff, bits)
 
 
-def msm_finish(curve, lanes):
+def msm_finish_plain(curve, lanes):
     """Per-lane affine products (K6's output) -> their sum, (1, ...) affine."""
     return curve.to_affine(tree_sum(curve, curve.lift(lanes))[None])
+
+
+def _msm_sum(wrapper, lanes, tail):
+    """lanes: (n, *tail) affine int64 limbs on a card, n >= 1 -> (1, *tail)
+    canonical affine.  Counts the launch on `wrapper`."""
+    which = wrapper.__name__
+    lanes = _build.check_cuda_input(lanes, "lanes", tail)
+    if lanes.dim() != len(tail) + 1 or lanes.shape[0] < 1:
+        raise ValueError(f"{which}: expected (n, {', '.join(map(str, tail))}) lanes, "
+                         f"got {tuple(lanes.shape)}")
+    lib = _build.cuda_library()
+    out = lanes.new_empty((1, *tail))
+    with torch.cuda.device(lanes.device):
+        stream = torch.cuda.current_stream(lanes.device).cuda_stream
+        err = getattr(lib, f"sipp_{which}")(lanes.data_ptr(), out.data_ptr(), lanes.shape[0],
+                                            stream)
+    _build.check_launch(lib, err, which)
+    wrapper.launches += 1
+    return out
+
+
+def msm_sum_g1(lanes):
+    """X2 for G1: (n, 2, 16) affine lanes on a card -> their sum (1, 2, 16)."""
+    return _msm_sum(msm_sum_g1, lanes, (2, 16))
+
+
+def msm_sum_g2(lanes):
+    """X2 for G2: (n, 2, 2, 16) affine lanes on a card -> their sum (1, 2, 2, 16)."""
+    return _msm_sum(msm_sum_g2, lanes, (2, 2, 16))
+
+
+msm_sum_g1.launches = 0
+msm_sum_g2.launches = 0
+
+
+def msm_finish(curve, lanes):
+    """Per-lane affine products (K6's output) -> their sum, (1, ...) affine:
+    X2 for CUDA tensors, msm_finish_plain for CPU tensors."""
+    if lanes.device.type == "cpu":
+        return msm_finish_plain(curve, lanes)
+    if lanes.device.type != "cuda":
+        raise ValueError(f"msm_finish: unsupported device {lanes.device}")
+    return (msm_sum_g1 if curve is G1 else msm_sum_g2)(lanes)
 
 
 # --------------------------------------------------- fixed-window bucket MSM

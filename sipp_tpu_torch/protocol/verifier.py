@@ -1,22 +1,29 @@
 """SIPP verifier (port of sipp_tpu/protocol/verifier.py).
 
-Entry validation (validate.py) first; then the host replays the transcript
-and the Z' chain Z' = Z_L^x * Z * Z_R^(x^-1) on the native C++ Fq12 pow/mul,
-popping the proof from the back.  The finals final_A, final_B come from one
-of two forms of the same group elements (so the same canonical bytes):
+The JAX package's order: entry validation (validate.check_instance_async)
+first, which raises at once on a bad limb of A or B and queues the curve
+and r-torsion verdicts (X1) without a host sync; then the proof's limb
+check, and the host replays the transcript and the Z' chain
+Z' = Z_L^x * Z * Z_R^(x^-1) on the native C++ Fq12 pow/mul, popping the
+proof from the back, while the card runs the verdicts.  So a bad proof limb
+is reported before a curve or subgroup fault of the instance.  The finals
+final_A, final_B come from one of two forms of the same group elements (so
+the same canonical bytes):
 
 - fold ladders: the device folds A and B with the challenges, one K3 launch
   per group and round;
 - MSM finals: final_A = sum_j [c_j] A_j with c_j = prod_k x_k^bit_k(j)
   (bit_1 the MSB of j), final_B the x^-1 twin: one K6 launch per group with a
-  zero offset (the per-lane ladders), then a complete-add tree and to_affine
-  in plain PyTorch on the device (ops/msm.py), as the JAX package leaves them
-  to XLA.
+  zero offset (the per-lane ladders), then one X2 launch per group, the sum
+  of the lanes as canonical affine (ops/msm.py msm_finish), where the JAX
+  package runs XLA's tree and to_affine.
 
 SIPP_VERIFY_MSM picks the form as in the JAX package: "auto" (the default)
 takes MSM finals for CUDA tensors and fold ladders for CPU tensors, "1"
-always MSM finals, "0" never.  Finally e(final_A, final_B) == final_Z is
-checked with one K1 + K2 aggregation.
+always MSM finals, "0" never.  Finally e(final_A, final_B) is computed with
+one K1 + K2 aggregation, the validation verdicts are fetched (finish(),
+which raises for a fault of the instance), and the pairing is compared
+with final_Z.
 
 With SIPP_TPU_NO_NATIVE set (native.enabled(), read per call) the verifier
 uses no C++ library, as the JAX verifier without its library: the
@@ -25,6 +32,7 @@ device as one K8 launch over the 2 log2(n) proof rows (z_chain_device).
 """
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -70,7 +78,7 @@ def msm_bits(xs, n: int):
 
 def _finals_msm(a_g1, b_g2, xs):
     """final_A, final_B as (1, ...) affine: K6 with a zero offset, then the
-    complete-add tree and to_affine."""
+    sum of the lanes (X2 on a card)."""
     finals = []
     for curve, k6, pts, bits in zip((curves.G1, curves.G2), (exp.exp_g1, exp.exp_g2),
                                     (a_g1, b_g2), msm_bits(xs, a_g1.shape[0])):
@@ -94,13 +102,36 @@ def z_chain_device(proof, rows):
     return ate.product_tree(torch.cat([z[None], powers]))
 
 
-def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
+def _lap(split, name, t0, device, sync=False):
+    """With a split dict: split[name] = the seconds since t0 (after a
+    synchronize of the card where sync is set); returns the time now."""
+    if split is None:
+        return t0
+    if sync and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    now = time.perf_counter()
+    split[name] = now - t0
+    return now
+
+
+def sipp_verify(a_g1, b_g2, proof, split=None) -> SIPPStatement:
     """proof: (2 log2(n) + 1, 2, 3, 2, 16) in the prover's reversed order.
-    Returns the accepted SIPPStatement or raises VerificationError."""
+    Returns the accepted SIPPStatement or raises VerificationError.
+
+    split: None, or a dict that gets the wall seconds of the phases:
+    validation_enqueue_s (the limb checks and the queued verdicts),
+    replay_s (the proof's limb check, the host transcript and Z' chain),
+    finals_s, aggregation_s (the final Z' and the pairing, read back) and
+    finish_wait_s (the verdicts' fetch).  With a dict the finals end in a
+    synchronize of the card, so finals_s also holds what the card still
+    had queued; without one the verifier makes no extra host sync."""
     n = check_shapes(a_g1, b_g2)
     if tuple(proof.shape) != (2 * (n.bit_length() - 1) + 1, 2, 3, 2, 16):
         raise VerificationError(f"proof has shape {tuple(proof.shape)} for n = {n}")
-    validate.check_instance(a_g1, b_g2)
+    dev = a_g1.device
+    t = time.perf_counter()
+    finish = validate.check_instance_async(a_g1, b_g2)
+    t = _lap(split, "validation_enqueue_s", t, dev)
     validate.check_proof(proof)
 
     use_native = native.enabled()
@@ -122,21 +153,23 @@ def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
         x = tr.get_challenge()
         x_inv = pow(x, -1, params.R)
         if use_native:
-            t = native.fq12_mul(native.fq12_pow(proof_u[idx], x), z_u)
-            z_u = native.fq12_mul(t, native.fq12_pow(proof_u[idx - 1], x_inv))
+            t_ = native.fq12_mul(native.fq12_pow(proof_u[idx], x), z_u)
+            z_u = native.fq12_mul(t_, native.fq12_pow(proof_u[idx - 1], x_inv))
         else:
             exp_rows += [(idx, x), (idx - 1, x_inv)]
         idx -= 2
         n //= 2
         sched.append((n, x, x_inv))
+    t = _lap(split, "replay_s", t, dev)
 
     a, b = a_g1, b_g2
-    if n0 > 1 and _use_msm(a_g1.device):
+    if n0 > 1 and _use_msm(dev):
         a, b = _finals_msm(a_g1, b_g2, [(x, x_inv) for _, x, x_inv in sched])
     else:
         for m, x, x_inv in sched:
             a = fold.fold_g1(a[:m], a[m:], scalar_to_bits(x))
             b = fold.fold_g2(b[:m], b[m:], scalar_to_bits(x_inv))
+    t = _lap(split, "finals_s", t, dev, sync=True)
 
     if use_native:
         final_z = native.fq12_u64_to_tower_ints(z_u)
@@ -145,6 +178,10 @@ def sipp_verify(a_g1, b_g2, proof) -> SIPPStatement:
     stmt = SIPPStatement(A=a_host, B=b_host, Z=proof_ints[-1],
                          final_A=curves.g1_decode(a)[0], final_B=curves.g2_decode(b)[0],
                          final_Z=final_z)
-    if tower.fq12_decode(ate.inner_product(a, b)) != final_z:
+    lhs = tower.fq12_decode(ate.inner_product(a, b))
+    t = _lap(split, "aggregation_s", t, dev)
+    finish()
+    _lap(split, "finish_wait_s", t, dev)
+    if lhs != final_z:
         raise VerificationError("Verification failed")
     return stmt

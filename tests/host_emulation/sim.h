@@ -1,8 +1,9 @@
-// Host emulation of the CUDA built-ins that the K0-K8 device code uses, so
-// that g++ compiles sipp_tpu_torch/csrc/{fq,miller,fexp,fold,exp,transcript}.cu's
-// kernels for the CPU: a block runs as host threads, __syncwarp /
-// __syncthreads are barriers of the warp's / block's threads, __shfl_sync and
-// __shfl_xor_sync are a per-warp exchange buffer between two warp barriers,
+// Host emulation of the CUDA built-ins that the K0-K8, X1 and X2 device code
+// uses, so that g++ compiles sipp_tpu_torch/csrc/{fq,miller,fexp,fold,exp,
+// transcript,validate,msm}.cu's kernels for the CPU: a block runs as host
+// threads, __syncwarp / __syncthreads are barriers of the warp's / block's
+// threads, __shfl_sync, __shfl_xor_sync and __any_sync are a per-warp
+// exchange buffer between two warp barriers,
 // __shared__ variables are statics, and bn254.cuh's carry flag is emulated
 // (its #else branch).
 #pragma once
@@ -41,6 +42,18 @@ inline T __shfl_sync(unsigned, T var, int src, int width = 32) {
     __syncwarp();
     std::memcpy(&var, &bits, sizeof(T));
     return var;
+}
+
+// Every lane of the warp writes its predicate, then reads all of them.
+inline int __any_sync(unsigned, int pred) {
+    const int warp = threadIdx.x / 32;
+    const int width = std::min(32, (int)blockDim.x - 32 * warp);
+    g_shfl[warp][threadIdx.x % 32] = pred != 0;
+    __syncwarp();
+    int any = 0;
+    for (int i = 0; i < width; i++) any |= (int)g_shfl[warp][i];
+    __syncwarp();
+    return any;
 }
 
 template <class T>

@@ -1,5 +1,6 @@
 // Runs the kernels' device code (fq.cu, miller.cu, fexp.cu, fold.cu, exp.cu,
-// transcript.cu) and bn254.cuh's Fq arithmetic on the CPU: see sim.h.
+// transcript.cu, validate.cu, msm.cu) and bn254.cuh's Fq arithmetic on the
+// CPU: see sim.h.
 //
 //   sim fq N in out           N pairs (a, b) of 16-limb Fq -> a*b, a+b, a-b, 1/a
 //   sim fq_mul N in out       a, b (N, 16) -> K0's a*b (N, 16), FQ_MUL_TILE
@@ -21,6 +22,14 @@
 //   sim append N in out       N cases of state (4, 5), f (2, 3, 2, 16) -> (4, 5)
 //   sim round_tail N in out   N cases of state, zl, zr -> state (4, 5), x, x^-1 (16,)
 //   sim fr_inv N in out       N canonical Fr (16,) -> their inverses
+//   sim torsion N in out      b (N, 2, 2, 16) -> X1's verdicts (N,)
+//   sim add_complete_g1 N in out
+//                             p (N, 3, 16) Jacobian, q (N, 2, 16) affine ->
+//                             ladder.cuh's add_complete_staged p + q (N, 3, 16)
+//   sim add_complete_g2 N in out
+//                             the same over Fq2: (N, 3, 2, 16), (N, 2, 2, 16)
+//   sim msm_sum_g1 N in out   lanes (N, 2, 16) -> X2's sum (1, 2, 16)
+//   sim msm_sum_g2 N in out   lanes (N, 2, 2, 16) -> X2's sum (1, 2, 2, 16)
 //
 // in and out hold int64 limbs (round, permute: u64 words), C order, in the
 // port's format.
@@ -35,7 +44,39 @@
 #include "fold.cu"
 #include "fq.cu"
 #include "miller.cu"
+#include "msm.cu"
 #include "transcript.cu"
+#include "validate.cu"
+
+// p + q with add_complete_staged, lane by lane: p (n, 3, LIMBS) Jacobian,
+// q (n, 2, LIMBS) affine -> out (n, 3, LIMBS); FOLD_LANES lanes a block
+template <class F>
+static void add_complete_lanes(const long long* p, const long long* q, long long* out, int n) {
+    for (int blk = 0; blk < (n + FOLD_LANES - 1) / FOLD_LANES; blk++)
+        run_block(blk, FOLD_LANES * FOLD_GROUP, [&] {
+            __shared__ FoldLane<F> lanes[FOLD_LANES];
+            const int sub = threadIdx.x % FOLD_GROUP;
+            const int lane = blockIdx.x * FOLD_LANES + threadIdx.x / FOLD_GROUP;
+            const bool live = lane < n;
+            FoldLane<F>& L = lanes[threadIdx.x / FOLD_GROUP];
+            const size_t pj = (size_t)lane * 3 * F::LIMBS, qj = (size_t)lane * 2 * F::LIMBS;
+            if (sub == 0) {
+                F::zero(L.zero);
+                F::zero(L.X); F::zero(L.Y); F::zero(L.Z); F::zero(L.hx); F::zero(L.hy);
+                if (live) {
+                    F::load(L.X, p + pj); F::load(L.Y, p + pj + F::LIMBS);
+                    F::load(L.Z, p + pj + 2 * F::LIMBS);
+                    F::load(L.hx, q + qj); F::load(L.hy, q + qj + F::LIMBS);
+                }
+            }
+            __syncwarp();
+            add_complete_staged<F>(L, L.hx, L.hy, sub, true);
+            if (sub == 0 && live) {
+                F::store(out + pj, L.X); F::store(out + pj + F::LIMBS, L.Y);
+                F::store(out + pj + 2 * F::LIMBS, L.Z);
+            }
+        });
+}
 
 int main(int argc, char** argv) {
     if (argc != 5) return 2;
@@ -138,6 +179,25 @@ int main(int argc, char** argv) {
             run_block(b, 32, [&] {
                 fq12_exp_kernel(x, x + (size_t)n * 192, x + (size_t)n * 384, out.data(), n);
             });
+    } else if (!strcmp(mode, "torsion")) {
+        out.resize(n);
+        for (int blk = 0; blk < (n + FOLD_LANES - 1) / FOLD_LANES; blk++)
+            run_block(blk, FOLD_LANES * FOLD_GROUP,
+                      [&] { g2_torsion_kernel(in.data(), out.data(), n); });
+    } else if (!strncmp(mode, "add_complete_g", 14)) {
+        const int limbs = mode[14] == '2' ? 32 : 16;
+        out.resize((size_t)n * 3 * limbs);
+        if (limbs == 32)
+            add_complete_lanes<G2Field>(in.data(), in.data() + (size_t)n * 96, out.data(), n);
+        else
+            add_complete_lanes<G1Field>(in.data(), in.data() + (size_t)n * 48, out.data(), n);
+    } else if (!strncmp(mode, "msm_sum_g", 9)) {
+        const bool g2 = mode[9] == '2';
+        out.resize(g2 ? 64 : 32);
+        run_block(0, FOLD_LANES * FOLD_GROUP, [&] {
+            if (g2) msm_sum_kernel<G2Field>(in.data(), out.data(), n);
+            else msm_sum_kernel<G1Field>(in.data(), out.data(), n);
+        });
     } else if (!strncmp(mode, "miller", 6)) {
         const int pair = !strcmp(mode, "miller_pair");
         const int k = pair ? 2 : 1;

@@ -13,10 +13,14 @@ hostref and the JAX package's own schedule, and the stages against curves'
 dbl and add_mixed, on seeded values.
 
 The last tests compile the kernels' device code itself (csrc/bn254.cuh,
-fq.cu, miller.cu, fold.cu, exp.cu, fexp.cu, transcript.cu) with g++ on an
-emulated carry flag, run each block as host threads (tests/host_emulation/sim.h,
-with __shfl_sync as a per-warp exchange buffer), and hold the results
-against the plain versions: K0 with a tail block; K4/K5's permutation against poseidon.permute
+fq.cu, miller.cu, fold.cu, exp.cu, fexp.cu, transcript.cu, validate.cu,
+msm.cu) with g++ on an emulated carry flag, run each block as host threads
+(tests/host_emulation/sim.h, with __shfl_sync and __any_sync as a per-warp
+exchange buffer), and hold the results against the plain versions: K0
+with a tail block; ladder.cuh's complete addition against curves'
+add_mixed(p, q, dbl(q)); X1 against g2_torsion_plain on points off the
+r-torsion; X2 against msm_finish_plain on repeated, cancelling and
+infinity lanes; K4/K5's permutation against poseidon.permute
 (with the pinned table and with a random one loaded through
 SIPP_POSEIDON_RC_FILE), their appends and round tail against
 transcript_*_plain, their Fr inverse against pow(x, r - 2, r).  They need
@@ -37,7 +41,7 @@ import torch
 from sipp_tpu_torch import convert, hostref, params
 from sipp_tpu_torch.curves import G1, G2, scalar_to_bits
 from sipp_tpu_torch.fields import FGL, FQ, poseidon, tower
-from sipp_tpu_torch.ops import _build, exp, fexp, fold, fq, miller, schedule, transcript
+from sipp_tpu_torch.ops import _build, exp, fexp, fold, fq, miller, msm, schedule, transcript
 from sipp_tpu_torch.protocol import transcript_device as td
 from sipp_tpu_torch.pairing import ate
 from sipp_tpu_torch.utils.testing import random_instance
@@ -470,6 +474,84 @@ def test_exp_kernel_emulated_matches_plain(sim, group):
     got = run_sim(sim, f"exp_{group}", 9, [x, off, bits]).reshape(x.shape)
     assert torch.equal(got, getattr(exp, f"exp_{group}_plain")(x, off, bits))
     assert bool((got[6] == 0).all())          # -[k]x + [k]x = O
+
+
+def forged_g2(k):
+    """k points of the twist outside the r-torsion (the BLS map before
+    cofactor clearing), as host points."""
+    from sipp_tpu_torch.apps.bls_aggregation import map_to_g2_without_cofactor_mul
+
+    return [map_to_g2_without_cofactor_mul((1234 + i, 5678)) for i in range(k)]
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_add_complete_kernel_emulated_matches_plain(sim, group):
+    """ladder.cuh's add_complete_staged at 9 lanes (two blocks) against
+    curves' add_mixed(p, q, dbl(q)): P == Q (the doubling), P == -Q, q at
+    infinity, p at infinity (all-zero, and Z = 0 under other X, Y), both at
+    infinity, and generic lanes."""
+    a, b = random_instance(9, seed=21, device="cpu")
+    C, pts = (G1, a) if group == "g1" else (G2, b)
+    p = C.dbl(C.jac_from_affine(pts))                  # Z != 1
+    q = torch.roll(pts, 1, 0).clone()
+    q[0] = C.to_affine(p[0:1])[0]                      # P == Q
+    q[1] = C.neg(C.to_affine(p[1:2]))[0]               # P == -Q
+    q[2], q[5] = 0, 0
+    p[3], p[5] = 0, 0
+    p[4].select(0, 2).zero_()                          # Z = 0, X and Y not
+    got = run_sim(sim, f"add_complete_{group}", 9, [p, q]).reshape(p.shape)
+    want = C.add_mixed(p, q, C.dbl(C.jac_from_affine(q)))
+    assert torch.equal(got, want)
+    assert torch.equal(C.to_affine(got[0:1]), C.to_affine(C.dbl(p[0:1])))
+    assert bool(C.is_infinity(got[1:2]).all()) and bool(C.is_infinity(got[5:6]).all())
+
+
+def test_torsion_kernel_emulated_matches_plain(sim):
+    """X1's device code (validate.cu) at 8 lanes (one block): honest points,
+    three off the r-torsion (the raw map), one of the cofactor's order
+    ([r] of a raw point) and an infinity lane, against g2_torsion_plain."""
+    from sipp_tpu_torch import curves
+    from sipp_tpu_torch.ops import validate as x1
+
+    _, b = random_instance(8, seed=23, device="cpu")
+    raw = forged_g2(3)
+    b[[1, 4, 6]] = curves.g2_encode(raw)
+    b[5] = curves.g2_encode([hostref.g2_mul_raw(raw[0], params.R)])[0]
+    b[3] = 0
+    got = run_sim(sim, "torsion", 8, [b])
+    want = x1.g2_torsion_plain(b)
+    assert torch.equal(got, want)
+    assert want.tolist() == [1, 0, 1, 1, 0, 0, 0, 1]
+
+
+def msm_lanes(C, pts, case):
+    """K6-like affine lanes for X2: "edge": a repeated lane that the chain
+    doubles (P, P), then -[2]P (the sum back at infinity), an infinity
+    lane, a cancelling pair (Q, -Q) and a lane repeated far from its twin;
+    "all_inf": every lane at infinity."""
+    lanes = pts.clone()
+    if case == "all_inf":
+        return torch.zeros_like(lanes[:3])
+    lanes[1] = lanes[0]
+    lanes[2] = C.neg(C.to_affine(C.dbl(C.jac_from_affine(lanes[0:1]))))[0]
+    lanes[3] = 0
+    lanes[5] = C.neg(lanes[4:5])[0]
+    lanes[9] = lanes[6]
+    return lanes
+
+
+@pytest.mark.parametrize("case", ["edge", "all_inf"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_msm_sum_kernel_emulated_matches_plain(sim, group, case):
+    """X2's device code (msm.cu) against msm_finish_plain, on 10 lanes with
+    infinity, repeated and cancelling lanes, and on lanes all at infinity."""
+    a, b = random_instance(10, seed=25, device="cpu")
+    C, pts = (G1, a) if group == "g1" else (G2, b)
+    lanes = msm_lanes(C, pts, case)
+    want = msm.msm_finish_plain(C, lanes)
+    got = run_sim(sim, f"msm_sum_{group}", lanes.shape[0], [lanes]).reshape(want.shape)
+    assert torch.equal(got, want)
+    assert bool((got == 0).all()) == (case == "all_inf")
 
 
 def gl_edge_states():

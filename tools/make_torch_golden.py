@@ -69,6 +69,20 @@ device format (16 x 16-bit Montgomery limbs):
                    (bls_aggregation.main's default_rng(0) stream; the bytes
                    of A then B, C-order uint32) and of sipp_prove's proof of
                    it on the CPU, which chip_smoke.py checks on the card
+  torsion_a, torsion_b, torsion_ok
+                   random_instance(8, seed=23) with B_1, B_4, B_6 raw map
+                   points (map_to_g2_without_cofactor_mul((1234 + i, 5678)),
+                   off the r-torsion), B_5 = [r] B_1 (of the cofactor's
+                   order) and B_3 = O; torsion_ok: validate._g2_in_subgroup
+                   of torsion_b (the XLA program that X1 replaces)
+  torsion_cases, torsion_case_a, torsion_case_b, torsion_when, torsion_msgs
+                   instances from torsion_a and an honest B (lane 3 at
+                   infinity), one per case (fine; A off the curve; B off
+                   the twist; B outside the r-torsion; A off the curve and B
+                   outside the r-torsion; a non-16-bit limb of B), and what
+                   validate.check_instance_async does with each: "now" (it
+                   raised), "finish" (its closure raised) or "none", with
+                   the VerificationError's words
   sharded8_a, sharded8_b, sharded8_proof
                    random_instance(8, seed=5) (the instance of
                    tests/test_sharding.py) and its proof: sipp_prove's;
@@ -389,6 +403,59 @@ def stage_bls128(g):
     g["bls128_proof_sha256"] = np.array(hashlib.sha256(proof.tobytes()).hexdigest())
 
 
+def _plus_one(limbs):
+    """y -> y + 1 (mod p) of 16 Montgomery limbs (uint32): adds R mod p."""
+    v = sum(int(x) << (16 * i) for i, x in enumerate(limbs))
+    v = (v + (1 << 256) % params.P) % params.P
+    return np.array([(v >> (16 * i)) & 0xFFFF for i in range(16)], np.uint32)
+
+
+def stage_torsion(g):
+    from sipp_tpu import hostref
+    from sipp_tpu.apps.bls_aggregation import map_to_g2_without_cofactor_mul
+    from sipp_tpu.curves import g2_encode
+    from sipp_tpu.protocol import validate
+    from sipp_tpu.protocol.verifier import VerificationError
+
+    a, b_honest = (u32(x).copy() for x in random_instance(8, seed=23))
+    raw = [map_to_g2_without_cofactor_mul((1234 + i, 5678)) for i in range(3)]
+    b = b_honest.copy()
+    b[[1, 4, 6]] = u32(g2_encode(raw))
+    b[5] = u32(g2_encode([hostref.g2_mul_raw(raw[0], params.R)]))[0]
+    b[3] = 0
+    b_honest[3] = 0
+    g.update(torsion_a=a, torsion_b=b,
+             torsion_ok=np.asarray(jax.device_get(validate._g2_in_subgroup(b)), bool))
+    off_a, off_b, limb_b, outside = a.copy(), b_honest.copy(), b_honest.copy(), b_honest.copy()
+    off_a[2, 1] = _plus_one(off_a[2, 1])
+    off_b[6, 1, 0] = _plus_one(off_b[6, 1, 0])
+    limb_b[0, 0, 0, 3] = 1 << 16
+    outside[4] = b[4]
+    cases = {"fine": (a, b_honest), "off_curve_a": (off_a, b_honest),
+             "off_twist_b": (a, off_b), "outside_subgroup_b": (a, outside),
+             "off_curve_a_outside_subgroup_b": (off_a, outside), "limb_b": (a, limb_b)}
+    when, msgs = [], []
+    for case_a, case_b in cases.values():
+        try:
+            finish = validate.check_instance_async(case_a, case_b)
+        except VerificationError as e:
+            when.append("now")
+            msgs.append(str(e))
+            continue
+        try:
+            finish()
+            when.append("none")
+            msgs.append("")
+        except VerificationError as e:
+            when.append("finish")
+            msgs.append(str(e))
+    log(f"torsion: {list(zip(when, msgs))}")
+    g.update(torsion_cases=np.array(list(cases)),
+             torsion_case_a=np.stack([c[0] for c in cases.values()]),
+             torsion_case_b=np.stack([c[1] for c in cases.values()]),
+             torsion_when=np.array(when), torsion_msgs=np.array(msgs))
+
+
 def stage_sharded8(g):
     a, b = random_instance(8, seed=5)
     g.update(sharded8_a=u32(a), sharded8_b=u32(b), sharded8_proof=u32(sipp_prove(a, b)))
@@ -408,7 +475,8 @@ def stage_sharded8_mesh(d, deps):
 STAGES = [("onchip", ()), ("miller", ()), ("pair", ()), ("fold", ()), ("prove", ()),
           ("fexp", ("pair", "miller")), ("verify", ("prove",)), ("transcript", ()),
           ("exp", ()), ("msm_inf", ()), ("miller_step", ()), ("bls", ()), ("bls128", ()),
-          ("sharded8", ()), ("sharded8_d2", ("sharded8",)), ("sharded8_d4", ("sharded8",))]
+          ("sharded8", ()), ("sharded8_d2", ("sharded8",)), ("sharded8_d4", ("sharded8",)),
+          ("torsion", ())]
 
 
 def run_stage(name, tmp):
