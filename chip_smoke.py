@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch + CUDA port (sipp_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's paths at n = 128 on the seed-1177 instance, through the
+Drives the port's paths at n = 128 on the seed-1177 instance, and its main
+path again at n = 4096 (the JAX package's headline size), through the
 hand-written CUDA kernels K0 (batched Fq multiply), K1 (Miller product, both
 modes), K2 (final exponentiation), K3 (fold ladders), K4/K5 (transcript tail
 and Z append), K6 (per-lane exp ladders, G1 and G2), K7 (one Miller step),
@@ -25,7 +26,10 @@ validation) and X2 (the sum of the MSM finals' lanes, G1 and G2):
      prove and the default verify (MSM finals);
   sharded. the sharded prover (parallel/sharded.py) on four shards: K1 in
      both modes and K3 a shard, K2 on the lead card;
-  K0. the field micro-benchmark entry point ops/fq.bench_compare.
+  K0. the field micro-benchmark entry point ops/fq.bench_compare;
+  n = 4096. the aggregation, both provers, the sharded prover and both
+     verify forms on the seed-1177 instance of n = 4096, drawn on the card
+     by K6 (utils/testing.random_instance).
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -79,6 +83,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      probed cycles of its own challenge's inverse); then K0 on an operand
      8 bytes off a 16-byte boundary (the wrapper copies it) and an empty
      kernel's launch, the floor of any launch;
+     the n = 128 instance is the host draw (hostref's multiplies);
   3. the n = 128 aggregation Z = FE(prod Miller(A_i, B_i)) must hash to the
      JAX reference's digest, then its steady-state time on distinct inputs;
   4. paths A, B and C, each with the launch counters set to 0 just before it
@@ -143,8 +148,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      their wall seconds beside K6's and msm_finish's, and each group's
      split into buckets, window combine and to_affine;
  10. K0's entry point, counted: its timing line and equality;
- 11. the kernel table (one row per kernel entry point, K0-K8, X1, X2; K0's row also
-     with its 2^20 case's times and bound and the empty launch's), the
+ 11. the n = 4096 phases, each line with "n": 4096 and its own seconds, then
+     their total: instance_4096 (K6's draw at n = 128 equal to the host draw
+     bit for bit; the n = 4096 draw's seconds and its instance_digest equal
+     to INSTANCE_DIGEST_LARGE, frozen from the JAX package);
+     aggregation_4096 (the digest of Z equal to the JAX package's
+     REF_DIGEST_LARGE, then ms on REPS_LARGE distinct rolled inputs, as
+     bench.py times it); protocol_4096 (the on-chip and host-spine proofs
+     byte-equal and ending with Z, the default verify (MSM finals) and the
+     fold verify accepting with equal statements, a tampered proof rejected
+     by both, exact launch counts of each prove and verify, the 12 rounds'
+     times, steady times, the default verify's split (three runs), the host
+     seconds of msm_bits, of the points' decode and of the prologue (decode
+     and hash), the idle share of one on-chip prove and one
+     default verify); kernels_4096 (K1 over the instance, K1's pair mode
+     over round 1's cross pairs, K3 on round 1's 2,048 lanes, K6 on the
+     verify's 4,096 lanes, X2 over K6's output and X1 on B, each against
+     its plain version, tolerance 0, with ms, device_ms and the bound
+     counted as the n = 128 rows count it); sharded_4096
+     (sipp_prove_sharded on four shards of one card: 10 sharded rounds and
+     a tail of 2, its proof byte-equal to the on-chip one, the shard
+     count's K1/K2/K3 launches);
+ 12. the kernel table (one row per kernel entry point, K0-K8, X1, X2; K0's row also
+     with its 2^20 case's times and bound and the empty launch's; the
+     rows with an n = 4096 case also carry its numbers under "n4096"), the
      card's name and power limit (nvidia-smi), and the last line
      {"ok": true, "device": {...}}.
 
@@ -202,6 +229,17 @@ SEED = 1177
 # sha256 of the (2, 3, 2, 16) C-order uint32 Z, as bench.py hashes it)
 REF_DIGEST = "2d267b78388f92ba"
 REPS = 10
+N_LARGE = 4096          # the JAX package's headline size (bench.py BENCH_N)
+REPS_LARGE = 4          # bench.py BENCH_REPS at n = 4096
+# seed-1177 n=4096 aggregation digest of the JAX reference (BENCH_r04.json,
+# BENCH_r05.json: bench.py's whole4096 stage), hashed as REF_DIGEST
+REF_DIGEST_LARGE = "aa3a48a7e00f696c"
+# utils/testing.instance_digest of the JAX package's
+# sipp_tpu.utils.testing.random_points(4096, 1177) (its host multiplies), made by
+#   JAX_PLATFORMS=cpu PYTHONPATH= python tools/make_torch_golden.py --only instance4096
+# (golden stage instance4096; the same value is tests/golden/torch_port.npz's
+# instance4096_digest)
+INSTANCE_DIGEST_LARGE = "925b7379311dfad26b1ce6abac6b7757ff07f0c61833644c9a2a4dbe8200af3b"
 GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden" / "torch_port.npz"
 HBM_BYTES_PER_S = 3.35e12
 FQ_PRODUCT_IMULS = 256                # an 8-word Montgomery product (Fq, Fr)
@@ -234,6 +272,17 @@ K0_LARGE = 1 << 20      # K0's bytes-bound batch
 BLS_N = 128             # the BLS demo's n (bls_aggregation.rs:93)
 SHARDS = 4              # the sharded phase's mesh: four shards on one card
 BUCKET_C = 8            # the bucket MSMs' window bits
+# each entry point's source under sipp_tpu_torch/csrc/ and the TPU kernel
+# (or XLA program) it replaces
+KERNEL_SOURCES = {"miller_product": ("miller.cu", "sipp_tpu/ops/pallas_miller.py:289"),
+                  "miller_product_pair": ("miller.cu", "sipp_tpu/ops/pallas_miller.py:289"),
+                  "fold_g1": ("fold.cu", "sipp_tpu/ops/pallas_fold.py:210"),
+                  "fold_g2": ("fold.cu", "sipp_tpu/ops/pallas_fold.py:221"),
+                  "exp_g1": ("exp.cu", "sipp_tpu/ops/pallas_exp.py:117"),
+                  "exp_g2": ("exp.cu", "sipp_tpu/ops/pallas_exp.py:128"),
+                  "g2_torsion": ("validate.cu", "sipp_tpu/protocol/validate.py:90"),
+                  "msm_sum_g1": ("msm.cu", "sipp_tpu/protocol/verifier.py:35"),
+                  "msm_sum_g2": ("msm.cu", "sipp_tpu/protocol/verifier.py:35")}
 # the TPU kernel each entry point replaces (PERF.md's kernel table)
 KERNEL_IDS = {"fq_mul": "K0", "miller_product": "K1", "miller_product_pair": "K1",
               "final_exp": "K2", "fold_g1": "K3", "fold_g2": "K3",
@@ -473,6 +522,371 @@ def device_ms(fn, sleep_cycles, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def tensors(obj):
+    """The tensors of a nest of tuples and lists, in order."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in tensors(o)]
+    return []
+
+
+def plain_ms(fn):
+    """(fn(), its host-clocked ms, the field products it made: count_products'
+    keys, a product once)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with count_products() as counts:
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.time() - t) * 1e3
+    return out, ms, {k: c // 3 if isinstance(k, int) else c for k, c in counts.items()}
+
+
+def compare(got, want):
+    """(max |got - want| over the outputs' limbs, whether the shapes match
+    and that is 0)."""
+    err = max(int((g - w).abs().max()) for g, w in zip(tensors(got), tensors(want)))
+    same = all(g.shape == w.shape for g, w in zip(tensors(got), tensors(want)))
+    return err, same and err == 0
+
+
+def bound(imuls, nbytes, imul_per_s):
+    """(bound_ms, bound_by): the larger of the 32-bit multiplies at the
+    card's rate and the bytes at HBM_BYTES_PER_S."""
+    ops_ms, bytes_ms = imuls / imul_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def launch_counters():
+    """(wrapper, attribute, counter name) of every kernel's launch count."""
+    from sipp_tpu_torch.ops import exp, fexp, fold, fq, miller, msm, transcript
+    from sipp_tpu_torch.ops import validate as x1
+
+    return [(miller.miller_product, "launches", "miller_product"),
+            (miller.miller_product, "pair_launches", "miller_product_pair"),
+            (fexp.final_exp, "launches", "final_exp"),
+            (fold.fold_g1, "launches", "fold_g1"),
+            (fold.fold_g2, "launches", "fold_g2"),
+            (transcript.transcript_append_fq12, "launches", "transcript_append_fq12"),
+            (transcript.transcript_round_tail, "launches", "transcript_round_tail"),
+            (exp.exp_g1, "launches", "exp_g1"),
+            (exp.exp_g2, "launches", "exp_g2"),
+            (miller.miller_step, "launches", "miller_step"),
+            (exp.fq12_exp, "launches", "fq12_exp"),
+            (fq.fq_mul, "launches", "fq_mul"),
+            (x1.g2_torsion, "launches", "g2_torsion"),
+            (msm.msm_sum_g1, "launches", "msm_sum_g1"),
+            (msm.msm_sum_g2, "launches", "msm_sum_g2")]
+
+
+def driven(fn):
+    """Run fn with every launch counter set to 0 just before; returns
+    (result, seconds, counts read just after)."""
+    import torch
+
+    counters = launch_counters()
+    for f, attr, _ in counters:
+        setattr(f, attr, 0)
+    torch.cuda.synchronize()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t, {name: getattr(f, attr) for f, attr, name in counters}
+
+
+def k6_skipped(x, bits):
+    """Field products of the incomplete adds that K6 skips: lanes whose bit
+    is 0, and every add of an x at infinity."""
+    from sipp_tpu_torch import curves
+
+    live = ~curves.G1.is_affine_infinity(x) if x.dim() == 3 else \
+        ~curves.G2.is_affine_infinity(x)
+    adds = int((bits.sum(0) * live).sum())
+    return ADD_MIXED_PRODUCTS * (254 * x.shape[0] - adds)
+
+
+def x2_products(curve, lanes):
+    """Fq products of an X2 sum's least work: an incomplete mixed add for
+    each live lane but the first (3 Fq products an Fq2 product in G2), and
+    to_affine, counted on the plain version."""
+    from sipp_tpu_torch.curves import G2
+
+    live = int((~curve.is_affine_infinity(lanes)).sum())
+    with count_products() as counts:
+        curve.to_affine(curve.lift(lanes[:1]))
+    per_fq2 = 3 if curve is G2 else 1
+    return ADD_MIXED_PRODUCTS * per_fq2 * max(live - 1, 0) + counts[16] // 3
+
+
+def challenges(a, b, proof):
+    """(x_k, x_k^-1) of each round of a proof of (a, b), replayed on the
+    host transcript."""
+    from sipp_tpu_torch import params
+    from sipp_tpu_torch.fields import tower
+    from sipp_tpu_torch.protocol import prover
+
+    tr = prover.prologue(a, b)
+    tr.append_fq12(tower.fq12_decode(proof[-1]))
+    xs = []
+    for k in range((proof.shape[0] - 1) // 2):
+        tr.append_fq12(tower.fq12_decode(proof[-2 - 2 * k]))
+        tr.append_fq12(tower.fq12_decode(proof[-3 - 2 * k]))
+        x = tr.get_challenge()
+        xs.append((x, pow(x, -1, params.R)))
+    return xs
+
+
+def sharded_launches(logn, shards=SHARDS):
+    """K1/K2/K3 launches of one sharded prove: Z, a K1 launch a shard and
+    one K2; each round while n > d, a pair-mode K1, a K3-G1 and a K3-G2
+    launch a shard and one K2; the tail's log2(d) rounds on the lead card,
+    one of each."""
+    tail = shards.bit_length() - 1
+    rounds = logn - tail
+    return rounds, tail, {"miller_product": shards,
+                          "miller_product_pair": shards * rounds + tail,
+                          "final_exp": 1 + rounds + tail, "fold_g1": shards * rounds + tail,
+                          "fold_g2": shards * rounds + tail}
+
+
+def run_large(dev, smi, imul_per_s, sleep_cycles, a128, b128):
+    """The n = 4096 phases on the seed-1177 instance, drawn on the card by
+    K6: instance_4096, aggregation_4096, protocol_4096, kernels_4096 and
+    sharded_4096, then their total seconds.  a128, b128: the host draw of
+    the n = 128 instance, which K6's draw must equal bit for bit.  Raises
+    SystemExit where a check fails.  Returns ({case: kernel case as the
+    n = 128 table holds it}, {path: launch counts})."""
+    import torch
+    from sipp_tpu_torch import convert, curves
+    from sipp_tpu_torch.curves import G1, G2, scalar_to_bits
+    from sipp_tpu_torch.fields import tower
+    from sipp_tpu_torch.ops import exp, fold, miller, msm
+    from sipp_tpu_torch.ops import validate as x1
+    from sipp_tpu_torch.pairing import ate
+    from sipp_tpu_torch.parallel import Mesh, sipp_prove_sharded
+    from sipp_tpu_torch.protocol import (VerificationError, prover, sipp_prove,
+                                         sipp_prove_onchip, sipp_verify, verifier)
+    from sipp_tpu_torch.utils.testing import instance_digest, ladder_instance, random_instance
+
+    t_large = time.time()
+    n, logn = N_LARGE, N_LARGE.bit_length() - 1
+
+    # ------------------------------------------------------ instance_4096
+    t_phase = time.time()
+    k6_128 = ladder_instance(N, SEED, dev)
+    k6_equals_host = torch.equal(k6_128[0], a128) and torch.equal(k6_128[1], b128)
+    torch.cuda.synchronize()
+    t = time.time()
+    a, b = random_instance(n, SEED, dev)
+    torch.cuda.synchronize()
+    draw_s = time.time() - t
+    t = time.time()
+    inst_digest = instance_digest(a, b)
+    digest_s = time.time() - t
+    emit({"phase": "instance_4096", "n": n, "seed": SEED, "draw_s": draw_s,
+          "instance_digest": inst_digest, "frozen_digest": INSTANCE_DIGEST_LARGE,
+          "digest_host_s": digest_s, "k6_draw_equals_host_draw_n128": k6_equals_host,
+          "seconds": time.time() - t_phase, "card": smi})
+    if inst_digest != INSTANCE_DIGEST_LARGE or not k6_equals_host:
+        raise SystemExit("K6's draw differs from the host draw at n = 128, or its n = 4096 "
+                         "instance digest from the JAX package's")
+
+    # --------------------------------------------------- aggregation_4096
+    t_phase = time.time()
+    z = ate.inner_product(a, b)
+    digest = hashlib.sha256(convert.to_reference(z).tobytes()).hexdigest()[:16]
+    assert REPS_LARGE + 1 < n, "rolled inputs would repeat"
+    insts = [(torch.roll(a, i + 1, 0), torch.roll(b, i + 1, 0)) for i in range(REPS_LARGE)]
+    torch.cuda.synchronize()
+    t = time.time()
+    for x, y in insts:
+        zz = ate.inner_product(x, y)
+    torch.cuda.synchronize()
+    agg_ms = (time.time() - t) / REPS_LARGE * 1e3
+    emit({"phase": "aggregation_4096", "n": n, "digest": digest,
+          "reference_digest": REF_DIGEST_LARGE, "reps": REPS_LARGE,
+          "ms_per_aggregation": agg_ms, "pairings_per_s": n / agg_ms * 1e3,
+          "seconds": time.time() - t_phase, "card": smi})
+    if digest != REF_DIGEST_LARGE or not torch.equal(zz, z):
+        raise SystemExit(f"n = 4096 aggregation digest {digest} != {REF_DIGEST_LARGE} or "
+                         "rolled input changed the product")
+
+    # ------------------------------------------------------ protocol_4096
+    t_phase = time.time()
+    (proof_o, tr_o), prove_onchip_s, launches_b = driven(
+        lambda: sipp_prove_onchip(a, b, return_transcript=True))
+    (proof_h, tr_h), prove_host_s, launches_h = driven(
+        lambda: sipp_prove(a, b, return_transcript=True))
+    with setenv("SIPP_VERIFY_MSM", "auto"):
+        stmt_msm, verify_msm_s, launches_c = driven(lambda: sipp_verify(a, b, proof_o))
+    with setenv("SIPP_VERIFY_MSM", "0"):
+        stmt_fold, verify_fold_s, launches_f = driven(lambda: sipp_verify(a, b, proof_h))
+    bad = proof_o.clone()
+    bad[1, 0, 0, 0, 0] = (bad[1, 0, 0, 0, 0] + 1) % 0xFFFF
+    rejected = {}
+    for mode in ("auto", "0"):
+        with setenv("SIPP_VERIFY_MSM", mode):
+            try:
+                sipp_verify(a, b, bad)
+                rejected[mode] = False
+            except VerificationError:
+                rejected[mode] = True
+    round_times = []
+    sipp_prove_onchip(a, b, round_times=round_times)
+    steady = {"prove_onchip_s": driven(lambda: sipp_prove_onchip(a, b))[1],
+              "prove_host_s": driven(lambda: sipp_prove(a, b))[1]}
+    with setenv("SIPP_VERIFY_MSM", "auto"):
+        steady["verify_msm_s"] = driven(lambda: sipp_verify(a, b, proof_o))[1]
+    splits = []
+    for _ in range(3):
+        sp = {}
+        torch.cuda.synchronize()
+        t = time.time()
+        stmt_sp = sipp_verify(a, b, proof_o, split=sp)
+        sp["total_s"] = time.time() - t
+        splits.append(sp)
+    xs = challenges(a, b, proof_o)
+    # host work that grows with n: msm_bits (the MSM finals' scalars), and
+    # the points' decode and prologue hash of every prove and verify
+    host = {}
+    t = time.time()
+    bits_a, bits_b = verifier.msm_bits(xs, n)
+    host["msm_bits_s"] = time.time() - t
+    t = time.time()
+    curves.g1_decode(a), curves.g2_decode(b)
+    host["decode_s"] = time.time() - t
+    t = time.time()
+    prover.prologue(a, b)
+    host["prologue_s"] = time.time() - t
+    idle = {"onchip_prove": idle_share(lambda: sipp_prove_onchip(a, b)),
+            "default_verify": idle_share(lambda: sipp_verify(a, b, proof_o))}
+    # exact launches: an on-chip prove, a host-spine prove, a default verify
+    # (MSM finals) and a fold verify; every other counter 0
+    want = {"B": {"miller_product": 1, "miller_product_pair": logn, "final_exp": 1 + logn,
+                  "fold_g1": logn, "fold_g2": logn, "transcript_round_tail": logn,
+                  "transcript_append_fq12": 1},
+            "host_spine": {"miller_product": 1, "miller_product_pair": logn,
+                           "final_exp": 1 + logn, "fold_g1": logn, "fold_g2": logn},
+            "C": {"miller_product": 1, "final_exp": 1, "exp_g1": 1, "exp_g2": 1,
+                  "g2_torsion": 1, "msm_sum_g1": 1, "msm_sum_g2": 1},
+            "fold_verify": {"miller_product": 1, "final_exp": 1, "fold_g1": logn,
+                            "fold_g2": logn, "g2_torsion": 1}}
+    got = {"B": launches_b, "host_spine": launches_h, "C": launches_c, "fold_verify": launches_f}
+    main_path = {k: launches_b[k] + launches_c[k] for k in launches_b}
+    checks = {
+        "onchip_equals_host_spine": np.array_equal(convert.to_reference(proof_o),
+                                                   convert.to_reference(proof_h)),
+        "transcript_states_equal": tr_o.state == tr_h.state,
+        "proof_shape": tuple(proof_o.shape) == (2 * logn + 1, 2, 3, 2, 16),
+        "proof_z_equals_aggregation": torch.equal(proof_o[-1], z),
+        "statement_z_equals_aggregation": stmt_msm.Z == tower.fq12_decode(z),
+        "statements_equal": stmt_msm == stmt_fold and stmt_sp == stmt_msm,
+        "tampered_rejected_msm": rejected["auto"], "tampered_rejected_fold": rejected["0"],
+        **{f"launches_exact_{p}": all(got[p][k] == w.get(k, 0) for k in got[p])
+           for p, w in want.items()}}
+    emit({"phase": "protocol_4096", "n": n, "prove_onchip_s": prove_onchip_s,
+          "prove_host_s": prove_host_s, "verify_msm_s": verify_msm_s,
+          "verify_fold_s": verify_fold_s, "steady": steady,
+          "fold_round_latency_ms_n4096": statistics.median(round_times) * 1e3,
+          "round_ms": [t * 1e3 for t in round_times], "verify_split": splits,
+          "verify_split_median": {k: statistics.median(sp[k] for sp in splits)
+                                  for k in splits[0]},
+          "host": host, "idle": idle, "launches": got,
+          "launches_main_path": main_path, "checks": checks,
+          "seconds": time.time() - t_phase, "card": smi})
+    if not all(checks.values()):
+        raise SystemExit(f"an n = 4096 protocol check failed: {checks}")
+
+    # ------------------------------------------------------- kernels_4096
+    # each kernel at the n = 4096 path's own shapes against its plain
+    # version: K1 over the instance (Z), K1 pair over round 1's cross
+    # pairs, K3 on round 1's folds (2,048 lanes), and the verify's MSM
+    # finals: K6 over 4,096 lanes, then X2 over its output; X1 on B (K2,
+    # K4 and K5 take the same shapes at every n)
+    m = n // 2
+    pair_p = torch.stack([a[m:], a[:m]], dim=1).reshape(n, 2, 16)
+    pair_q = torch.stack([b[:m], b[m:]], dim=1).reshape(n, 2, 2, 16)
+    xbits, xinvbits = scalar_to_bits(xs[0][0]), scalar_to_bits(xs[0][1])
+    msm_a, msm_b = (torch.as_tensor(v, device=dev) for v in (bits_a, bits_b))
+    zeros_a, zeros_b = torch.zeros_like(a), torch.zeros_like(b)
+    lanes_a, lanes_b = exp.exp_g1(a, zeros_a, msm_a), exp.exp_g2(b, zeros_b, msm_b)
+    cases = [
+        ("miller_product_n4096", "miller_product", lambda: miller.miller_product(a, b),
+         lambda: miller.miller_product_plain(a, b), (a, b)),
+        ("miller_product_pair_n4096", "miller_product_pair",
+         lambda: miller.miller_product(pair_p, pair_q, pair=True),
+         lambda: miller.miller_product_plain(pair_p, pair_q, pair=True), (pair_p, pair_q)),
+        ("fold_g1_n2048", "fold_g1", lambda: fold.fold_g1(a[:m], a[m:], xbits),
+         lambda: fold.fold_g1_plain(a[:m], a[m:], xbits), (a[:m], a[m:])),
+        ("fold_g2_n2048", "fold_g2", lambda: fold.fold_g2(b[:m], b[m:], xinvbits),
+         lambda: fold.fold_g2_plain(b[:m], b[m:], xinvbits), (b[:m], b[m:])),
+        ("exp_g1_n4096", "exp_g1", lambda: exp.exp_g1(a, zeros_a, msm_a),
+         lambda: exp.exp_g1_plain(a, zeros_a, msm_a), (a, zeros_a, msm_a)),
+        ("exp_g2_n4096", "exp_g2", lambda: exp.exp_g2(b, zeros_b, msm_b),
+         lambda: exp.exp_g2_plain(b, zeros_b, msm_b), (b, zeros_b, msm_b)),
+        ("msm_sum_g1_n4096", "msm_sum_g1", lambda: msm.msm_sum_g1(lanes_a),
+         lambda: msm.msm_finish_plain(G1, lanes_a), (lanes_a,)),
+        ("msm_sum_g2_n4096", "msm_sum_g2", lambda: msm.msm_sum_g2(lanes_b),
+         lambda: msm.msm_finish_plain(G2, lanes_b), (lanes_b,)),
+        ("g2_torsion_n4096", "g2_torsion", lambda: x1.g2_torsion(b),
+         lambda: x1.g2_torsion_plain(b), (b,)),
+    ]
+    products_needed = {"exp_g1_n4096": lambda p: p.get(16, 0) - k6_skipped(a, msm_a),
+                       "exp_g2_n4096": lambda p: p.get(16, 0) - 3 * k6_skipped(b, msm_b),
+                       "msm_sum_g1_n4096": lambda p: x2_products(G1, lanes_a),
+                       "msm_sum_g2_n4096": lambda p: x2_products(G2, lanes_b)}
+    table = {}
+    for name, counter, kern, plain, inputs in cases:
+        t_case = time.time()
+        got_k = kern()
+        want_k, p_ms, products = plain_ms(plain)
+        err, ok = compare(got_k, want_k)
+        k_ms, d_ms = kernel_ms(kern), device_ms(kern, sleep_cycles)
+        # as the n = 128 rows: an Fq12 squaring at the complex squaring's
+        # products; K6 less what its bits skip; X2 its least work
+        needed = products_needed.get(name, lambda p: p.get(16, 0) - (
+            FQ12_MUL_PRODUCTS - FQ12_SQR_PRODUCTS) * p.get("fq12_sqr", 0))(products)
+        bound_ms, bound_by = bound(FQ_PRODUCT_IMULS * needed, 8 * sum(
+            t.numel() for t in tensors(inputs) + tensors(got_k)), imul_per_s)
+        src, replaces = KERNEL_SOURCES[counter]
+        table[name] = {"name": name, "route": "cuda", "source": f"sipp_tpu_torch/csrc/{src}",
+                       "replaces": replaces, "counter": counter, "max_abs_err": err,
+                       "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": None}
+        emit({"phase": "kernels_4096", "n": n, "name": name,
+              "shape": [list(t.shape) for t in tensors(got_k)], "bit_equal": ok,
+              "max_abs_err": err, "tolerance": 0, "ms": k_ms, "device_ms": d_ms,
+              "plain_ms": p_ms, "plain_products": products, "products_needed": needed,
+              "bound_ms": bound_ms, "bound_by": bound_by, "seconds": time.time() - t_case,
+              "card": smi})
+        if not ok:
+            raise SystemExit(f"kernel {name} disagrees with its plain version at n = 4096")
+
+    # ------------------------------------------------------- sharded_4096
+    t_phase = time.time()
+    one_card = Mesh((dev,) * SHARDS)
+    proof_sh, sharded_s, launches_sh = driven(lambda: sipp_prove_sharded(a, b, one_card))
+    rounds_sh, tail_sh, want_sh = sharded_launches(logn)
+    checks_sh = {"equals_onchip": torch.equal(proof_sh, proof_o),
+                 "launches_match_shards": all(launches_sh[k] == v for k, v in want_sh.items())}
+    emit({"phase": "sharded_4096", "n": n, "shards": SHARDS, "rounds_sharded": rounds_sh,
+          "rounds_tail": tail_sh, "prove_s": sharded_s, "launches": launches_sh,
+          "launches_expected": want_sh, "checks": checks_sh,
+          "seconds": time.time() - t_phase, "card": smi})
+    if not all(checks_sh.values()):
+        raise SystemExit(f"an n = 4096 sharded prover check failed: {checks_sh}")
+    emit({"phase": "n4096_total", "n": n, "seconds": time.time() - t_large, "card": smi})
+    paths = {"B_4096": launches_b, "C_4096": launches_c,
+             "A_4096": {k: launches_h[k] + launches_f[k] for k in launches_h},
+             "sharded_4096": launches_sh}
+    return table, paths
+
+
 def main():
     import torch
 
@@ -488,7 +902,7 @@ def main():
     from sipp_tpu_torch.protocol import (VerificationError, prover, sipp_prove,
                                          sipp_prove_onchip, sipp_verify, validate, verifier)
     from sipp_tpu_torch.protocol import transcript as host_transcript
-    from sipp_tpu_torch.utils.testing import random_instance
+    from sipp_tpu_torch.utils.testing import random_points
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -533,26 +947,11 @@ def main():
         raise SystemExit("the transcript probe computed a wrong value")
 
     t0 = time.time()
-    a, b = random_instance(N, seed=SEED, device=dev)
+    a_pts, b_pts = random_points(N, seed=SEED)       # the host draw (hostref)
+    a, b = curves.g1_encode(a_pts, dev), curves.g2_encode(b_pts, dev)
     emit({"phase": "instance", "n": N, "seed": SEED, "host_s": time.time() - t0})
 
     # ------------------------------------- 2. kernels against plain versions
-    def plain_ms(fn):
-        torch.cuda.synchronize()
-        with count_products() as counts:
-            t = time.time()
-            out = fn()
-            torch.cuda.synchronize()
-            ms = (time.time() - t) * 1e3
-        return out, ms, {k: c // 3 if isinstance(k, int) else c for k, c in counts.items()}
-
-    def tensors(obj):
-        if isinstance(obj, torch.Tensor):
-            return [obj]
-        if isinstance(obj, (tuple, list)):
-            return [t for o in obj for t in tensors(o)]
-        return []
-
     half = N // 2
     pair_p = torch.stack([a[half:], a[:half]], dim=1).reshape(N, 2, 16)
     pair_q = torch.stack([b[:half], b[half:]], dim=1).reshape(N, 2, 2, 16)
@@ -577,7 +976,7 @@ def main():
         return (lambda: miller.miller_product(p, q, pair=pair),
                 lambda: miller.miller_product_plain(p, q, pair=pair), (p, q))
 
-    k1_src = ("miller.cu", "sipp_tpu/ops/pallas_miller.py:289")
+    k1_src = KERNEL_SOURCES["miller_product"]
     dead = slice(N - 8, N)
     lo1, hi1 = a.clone(), torch.roll(a, 1, 0)
     lo2, hi2 = b.clone(), torch.roll(b, 1, 0)
@@ -627,14 +1026,6 @@ def main():
     def k6(fn, plain, x, off, bits):
         return (lambda: fn(x, off, bits), lambda: plain(x, off, bits), (x, off, bits))
 
-    def k6_skipped(x, bits):
-        """Field products of the incomplete adds that the kernel skips: lanes
-        whose bit is 0, and every add of an x at infinity."""
-        live = ~curves.G1.is_affine_infinity(x) if x.dim() == 3 else \
-            ~curves.G2.is_affine_infinity(x)
-        adds = int((bits.sum(0) * live).sum())
-        return ADD_MIXED_PRODUCTS * (254 * x.shape[0] - adds)
-
     # K7 inputs: the carry after the first three digits (plain steps), on
     # the instance and on the instance with infinity lanes
     def step_inputs(p, q, steps=3):
@@ -654,18 +1045,6 @@ def main():
     # K8 inputs: the verifier's Z' chain rows of a proof of this instance,
     # with their challenge bits and offsets of one; and 100 lanes of seeded
     # Fq12 values with all-zero bits, offsets of one and x = 1
-    def challenges(proof):
-        """(x_k, x_k^-1) of each round, replayed on the host transcript."""
-        tr = prover.prologue(a, b)
-        tr.append_fq12(tower.fq12_decode(proof[-1]))
-        xs = []
-        for k in range(LOGN):
-            tr.append_fq12(tower.fq12_decode(proof[-2 - 2 * k]))
-            tr.append_fq12(tower.fq12_decode(proof[-3 - 2 * k]))
-            x = tr.get_challenge()
-            xs.append((x, pow(x, -1, params.R)))
-        return xs
-
     def z_rows(xs):
         """The verifier's (proof row, exponent) pairs, in its order."""
         return [r for k, (x, x_inv) in enumerate(xs)
@@ -676,7 +1055,7 @@ def main():
                                device=dev)
 
     proof_k8 = sipp_prove_onchip(a, b)
-    rows_k8 = z_rows(challenges(proof_k8))
+    rows_k8 = z_rows(challenges(a, b, proof_k8))
     # K4 inputs: every round's (state, Z_L, Z_R) of that on-chip run, the
     # states chained as the prover chains them
     tail_inputs, st = [], state1
@@ -737,8 +1116,7 @@ def main():
         return lambda: fq.fq_mul(x, y), lambda: fq.fq_mul_plain(x, y), (x, y)
 
     zeros_a, zeros_b = torch.zeros_like(a), torch.zeros_like(b)
-    k6_g1 = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:117")
-    k6_g2 = ("exp.cu", "sipp_tpu/ops/pallas_exp.py:128")
+    k6_g1, k6_g2 = KERNEL_SOURCES["exp_g1"], KERNEL_SOURCES["exp_g2"]
     k4_src = ("transcript.cu", "sipp_tpu/ops/pallas_transcript.py:302")
     k5_src = ("transcript.cu", "sipp_tpu/ops/pallas_transcript.py:269")
 
@@ -759,8 +1137,7 @@ def main():
         return (lambda: kern(lo[:n], hi[:n], bits), lambda: plain(lo[:n], hi[:n], bits),
                 (lo[:n], hi[:n]))
 
-    k3_g1 = ("fold.cu", "sipp_tpu/ops/pallas_fold.py:210")
-    k3_g2 = ("fold.cu", "sipp_tpu/ops/pallas_fold.py:221")
+    k3_g1, k3_g2 = KERNEL_SOURCES["fold_g1"], KERNEL_SOURCES["fold_g2"]
 
     # X1 inputs: the instance's B at 128 lanes; and 100 lanes with raw map
     # points (on the twist, off the r-torsion), points of the cofactor's
@@ -772,7 +1149,7 @@ def main():
     forged_b[cofactor_lanes] = curves.g2_encode(
         [hostref.g2_mul_raw(pt, params.R) for pt in raw[:2]], dev)
     forged_b[inf_lanes] = 0
-    x1_src = ("validate.cu", "sipp_tpu/protocol/validate.py:90")
+    x1_src = KERNEL_SOURCES["g2_torsion"]
 
     def x1_case(pts):
         return (lambda: x1.g2_torsion(pts), lambda: x1.g2_torsion_plain(pts), (pts,))
@@ -794,23 +1171,12 @@ def main():
 
     x2_lanes = {"msm_sum_g1": k6_out["g1"], "msm_sum_g2": k6_out["g2"],
                 "msm_sum_g1_edge_n100": x2_edge(G1, a), "msm_sum_g2_edge_n100": x2_edge(G2, b)}
-    x2_src = ("msm.cu", "sipp_tpu/protocol/verifier.py:35")
+    x2_src = KERNEL_SOURCES["msm_sum_g2"]
 
     def x2_case(name):
         lanes, curve = x2_lanes[name], G2 if "g2" in name else G1
         kern = msm.msm_sum_g2 if curve is G2 else msm.msm_sum_g1
         return (lambda: kern(lanes), lambda: msm.msm_finish_plain(curve, lanes), (lanes,))
-
-    def x2_products(name):
-        """Fq products of the sum's least work: an incomplete mixed add for
-        each live lane but the first (3 Fq products an Fq2 product in G2),
-        and to_affine, counted on the plain version."""
-        lanes, curve = x2_lanes[name], G2 if "g2" in name else G1
-        live = int((~curve.is_affine_infinity(lanes)).sum())
-        with count_products() as counts:
-            curve.to_affine(curve.lift(lanes[:1]))
-        per_fq2 = 3 if curve is G2 else 1
-        return ADD_MIXED_PRODUCTS * per_fq2 * max(live - 1, 0) + counts[16] // 3
 
     cases = [
         ("fq_mul_n4096", "fq_mul", *k0_src, *k0(fq_a, fq_b)),
@@ -869,13 +1235,13 @@ def main():
                "exp_g2_edge_n100": 3 * k6_skipped(ex2, edge_bits)}
     chain = {"fq12_exp_n14": k8_products(k8_bits), "fq12_exp_forged_n14": k8_products(k8_bits),
              "fq12_exp_edge_n100": k8_products(e8_bits),
-             **{name: x2_products(name) for name in x2_lanes}}
+             **{name: x2_products(G2 if "g2" in name else G1, lanes)
+                for name, lanes in x2_lanes.items()}}
     table = {}
     for name, counter, src, replaces, kern, plain, inputs in cases:
         got = kern()
         want, p_ms, products = plain_ms(plain)
-        err = max(int((g - w).abs().max()) for g, w in zip(tensors(got), tensors(want)))
-        ok = all(g.shape == w.shape for g, w in zip(tensors(got), tensors(want))) and err == 0
+        err, ok = compare(got, want)
         k_ms = kernel_ms(kern)
         d_ms = device_ms(kern, sleep_cycles)
         extra = ({"earlier_ms_quoted_from_perf_md": QUOTED_EARLIER_MS[name]}
@@ -899,14 +1265,12 @@ def main():
             # an Fq12 squaring needs the complex squaring's products
             sqr_saved = (FQ12_MUL_PRODUCTS - FQ12_SQR_PRODUCTS) * products.get("fq12_sqr", 0)
             imuls = FQ_PRODUCT_IMULS * (products.get(16, 0) - sqr_saved - skipped.get(name, 0))
-        nbytes = 8 * sum(t.numel() for t in tensors(inputs) + tensors(got))
-        ops_ms, bytes_ms = imuls / imul_per_s * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = bound(imuls, 8 * sum(t.numel() for t in tensors(inputs)
+                                                  + tensors(got)), imul_per_s)
         table[name] = {"name": name, "route": "cuda", "source": f"sipp_tpu_torch/csrc/{src}",
                        "replaces": replaces, "counter": counter, "max_abs_err": err,
                        "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-                       "bound_ms": max(ops_ms, bytes_ms),
-                       "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                       "library_ms": None}
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         emit({"phase": "kernel", "name": name, "shape": [list(t.shape) for t in tensors(got)],
               "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms,
               "device_ms": d_ms, **extra,
@@ -1041,33 +1405,6 @@ def main():
                          "changed the product")
 
     # ------------------------------------------------- 4. prove and verify
-    counters = [(miller.miller_product, "launches", "miller_product"),
-                (miller.miller_product, "pair_launches", "miller_product_pair"),
-                (fexp.final_exp, "launches", "final_exp"),
-                (fold.fold_g1, "launches", "fold_g1"),
-                (fold.fold_g2, "launches", "fold_g2"),
-                (transcript.transcript_append_fq12, "launches", "transcript_append_fq12"),
-                (transcript.transcript_round_tail, "launches", "transcript_round_tail"),
-                (exp.exp_g1, "launches", "exp_g1"),
-                (exp.exp_g2, "launches", "exp_g2"),
-                (miller.miller_step, "launches", "miller_step"),
-                (exp.fq12_exp, "launches", "fq12_exp"),
-                (fq.fq_mul, "launches", "fq_mul"),
-                (x1.g2_torsion, "launches", "g2_torsion"),
-                (msm.msm_sum_g1, "launches", "msm_sum_g1"),
-                (msm.msm_sum_g2, "launches", "msm_sum_g2")]
-
-    def driven(fn):
-        """Run fn with every launch counter set to 0 just before; returns
-        (result, seconds, counts read just after)."""
-        for f, attr, _ in counters:
-            setattr(f, attr, 0)
-        torch.cuda.synchronize()
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.time() - t, {name: getattr(f, attr) for f, attr, name in counters}
-
     def rejects(proof):
         try:
             sipp_verify(a, b, proof)
@@ -1126,7 +1463,7 @@ def main():
         with setenv("SIPP_VERIFY_MSM", mode):
             steady[name] = driven(lambda: sipp_verify(a, b, proof_o))[1]
     # the MSM finals split: K6 (both groups) against tree sum + to_affine
-    xs_run = challenges(proof_o)
+    xs_run = challenges(a, b, proof_o)
     ba, bb = (torch.as_tensor(v, device=dev) for v in verifier.msm_bits(xs_run, N))
     k6_ms = kernel_ms(lambda: (exp.exp_g1(a, zeros_a, ba), exp.exp_g2(b, zeros_b, bb)), reps=3)
     lanes_a, lanes_b = exp.exp_g1(a, zeros_a, ba), exp.exp_g2(b, zeros_b, bb)
@@ -1405,13 +1742,7 @@ def main():
     paths["sharded"] = launches_sh
     needed["sharded"] = ["miller_product", "miller_product_pair", "final_exp", "fold_g1",
                          "fold_g2"]
-    # Z: a K1 launch a shard and one K2; each round while n > d: a pair-mode
-    # K1, a K3-G1 and a K3-G2 launch a shard and one K2; the tail's log2(d)
-    # rounds on the lead card: one of each
-    rounds_sh, tail_sh = LOGN - SHARDS.bit_length() + 1, SHARDS.bit_length() - 1
-    want_sh = {"miller_product": SHARDS, "miller_product_pair": SHARDS * rounds_sh + tail_sh,
-               "final_exp": 1 + rounds_sh + tail_sh, "fold_g1": SHARDS * rounds_sh + tail_sh,
-               "fold_g2": SHARDS * rounds_sh + tail_sh}
+    rounds_sh, tail_sh, want_sh = sharded_launches(LOGN)
     steady_sh = statistics.median(driven(lambda: sipp_prove_sharded(a, b, one_card))[1]
                                   for _ in range(3))
     idle_sh = idle_share(lambda: sipp_prove_sharded(a, b, one_card))
@@ -1496,12 +1827,17 @@ def main():
         raise SystemExit(f"K0's entry point disagrees, or a kernel of a path never ran or "
                          f"ran other than once a verify: {missing}")
 
-    # -------------------------------------------------------- 11. summary
+    # ------------------------------------------- 11. the n = 4096 phases
+    table_large, paths_large = run_large(dev, smi, imul_per_s, sleep_cycles, a, b)
+    paths.update(paths_large)
+
+    # -------------------------------------------------------- 12. summary
     # one row per kernel entry point: the numbers of its first case (the
     # paths' shape), the largest error over all its cases, and launches
-    # summed over the driven runs of paths A-E, BLS, the sharded prover and
-    # K0's entry point;
-    # K0's row also carries its bytes-bound case and the empty launch
+    # summed over the driven runs of paths A-E, BLS, the sharded prover,
+    # K0's entry point and the n = 4096 provers and verifiers; K0's row also
+    # carries its bytes-bound case and the empty launch, and a row with an
+    # n = 4096 case that case's numbers and its error
     rows = {}
     for case in table.values():
         counter = case.pop("counter")
@@ -1515,6 +1851,12 @@ def main():
     rows["fq_mul"].update({f"{k}_n{K0_LARGE}": large[k] for k in ("ms", "device_ms", "plain_ms",
                                                                   "bound_ms", "bound_by")})
     rows["fq_mul"]["empty_launch_device_ms"] = empty_launch["device_ms"]
+    for case in table_large.values():
+        row = rows[case["counter"]]
+        row["cases"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], case["max_abs_err"])
+        row[f"n{N_LARGE}"] = {k: case[k] for k in ("name", "ms", "device_ms", "plain_ms",
+                                                   "bound_ms", "bound_by")}
     emit({"kernels": sorted(rows.values(), key=lambda r: r["id"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

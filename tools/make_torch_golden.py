@@ -89,6 +89,11 @@ device format (16 x 16-bit Montgomery limbs):
                    stages sharded8_d2 and sharded8_d4 check that
                    sipp_prove_sharded on make_mesh(2) and make_mesh(4), over
                    forced host devices, gives the same proof
+  instance4096_digest
+                   the port's utils/testing.points_digest (instance_digest's
+                   layout) of random_points(4096, seed=1177), the JAX
+                   package's host draw (~3 min of pure-Python multiplies);
+                   chip_smoke.py holds the port's draw on the card to it
 
 Each stage runs in its own process, two at a time.  Usage (about half an
 hour on the CPU, most of it the XLA compiles of the on-chip stage and of
@@ -461,6 +466,15 @@ def stage_sharded8(g):
     g.update(sharded8_a=u32(a), sharded8_b=u32(b), sharded8_proof=u32(sipp_prove(a, b)))
 
 
+def stage_instance4096(g):
+    from sipp_tpu.utils.testing import random_points
+
+    from sipp_tpu_torch.utils.testing import points_digest
+
+    g["instance4096_digest"] = np.array(points_digest(*random_points(4096, seed=1177)))
+    log(f"instance4096_digest {g['instance4096_digest']}")
+
+
 def stage_sharded8_mesh(d, deps):
     """Checks, writes nothing: the JAX sharded prover on d forced host
     devices gives stage sharded8's proof."""
@@ -476,7 +490,7 @@ STAGES = [("onchip", ()), ("miller", ()), ("pair", ()), ("fold", ()), ("prove", 
           ("fexp", ("pair", "miller")), ("verify", ("prove",)), ("transcript", ()),
           ("exp", ()), ("msm_inf", ()), ("miller_step", ()), ("bls", ()), ("bls128", ()),
           ("sharded8", ()), ("sharded8_d2", ("sharded8",)), ("sharded8_d4", ("sharded8",)),
-          ("torsion", ())]
+          ("torsion", ()), ("instance4096", ())]
 
 
 def run_stage(name, tmp):
