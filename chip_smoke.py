@@ -67,10 +67,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      of one and x = 1; X1 on the instance's B at 128 lanes and at 100 lanes
      with raw map points (off the r-torsion), points of the cofactor's
      order and infinity lanes (0 exactly on the forged lanes); X2 on K6's
-     output at the MSM finals' 128 lanes, G1 and G2, and at 100 lanes with
+     output at the MSM finals' 128 lanes, G1 and G2, at 100 lanes with
      a repeated lane that the chain doubles, a lane that cancels the sum,
      infinity lanes and a cancelling pair (also against the sum of the
-     lanes on the host);
+     lanes on the host), and on K6's first lane alone and its first
+     MSM_CHUNK + 1 (csrc/msm.cu), each with its latency floor;
      K0 at 4096, 1000 and 2^20 elements (the last drawn on the card by
      fq.uniform_batch, rows 0, 1 and p - 1 first), with an empty kernel's
      launch beside it, the floor of any launch; K3 at 128 lanes (dead lanes, a dead lo
@@ -163,9 +164,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      and hash), the idle share of one on-chip prove and one
      default verify); kernels_4096 (K1 over the instance, K1's pair mode
      over round 1's cross pairs, K3 on round 1's 2,048 lanes, K6 on the
-     verify's 4,096 lanes, X2 over K6's output and X1 on B, each against
-     its plain version, tolerance 0, with ms, device_ms and the bound
-     counted as the n = 128 rows count it); sharded_4096
+     verify's 4,096 lanes, X2 over K6's output, over it with chunk and
+     block edges (chunks and blocks of the chunk launch that repeat,
+     cancel or lie at infinity), over its halves cancelling (the sum at
+     infinity: all-zero limbs) and over its first 3,971 lanes (a ragged
+     last block), and X1 on B, each against its plain version, tolerance
+     0, with ms, device_ms and the bound counted as the n = 128 rows count
+     it, X2's with its latency floor); sharded_4096
      (sipp_prove_sharded on four shards of one card: 10 sharded rounds and
      a tail of 2, its proof byte-equal to the on-chip one, the shard
      count's K1/K2/K3 launches);
@@ -197,8 +202,12 @@ extended Euclid, whose subtract-and-shift steps multiply nothing); the
 plain version works on 16-bit Goldilocks limbs in Montgomery form.  For X1
 they are the plain ladder's products; for X2 the least the sum needs, an
 incomplete mixed add for each live lane but the first and to_affine's
-products (the plain tree also doubles beside every addition).  No PyTorch
-call computes any of these functions, so library_ms is null.
+products (the plain tree also doubles beside every addition).  X2's lines
+also carry its latency floor (x2_floor_ms: ceil(log2 n) dependent
+complete additions of 5 product levels each, then, unless the sum is at
+infinity, the Fermat inversion's chain and to_affine's products, at the
+Fq probe's cycles a product).  No
+PyTorch call computes any of these functions, so library_ms is null.
 
 Usage, from the root of a checkout (the first run builds the kernels with
 nvcc into sipp_tpu_torch/build/):
@@ -248,15 +257,17 @@ GL_PRODUCT_IMULS = 8    # Goldilocks 64 x 64 -> 128 bits: 4 word products; the
 #                         reduction by 2^64 = 2^32 - 1 takes shifts and adds
 MDS_TERM_IMULS = 4      # an MDS entry (< 2^32) times a u64: 2 word products
 FR_DIV_ROW_IMULS = 17   # a word row of a Montgomery division: m, then m r
+X2_ADD_DEPTH = 5        # dependent product levels of a complete Jacobian add
+#                         (Z^2, U, H^2, H^3, R (V - X3): curves' add's formulas)
 FQ12_MUL_PRODUCTS = 54  # Fq products of one Fq12 multiply
 FQ12_SQR_PRODUCTS = 36  # of one complex squaring (K1's and K7's table);
 #                         the plain tower.fq12_sqr multiplies, 54
 # The redesigned kernels' times before their last redesign (K1, K2, K3, K6,
 # K7, K8: one thread per element or lane; K4, K5: shared-memory rounds and a
-# Fermat inverse), quoted from the "before" column of PERF.md's kernel table
-# (NVIDIA H100 80GB HBM3, 700.00 W), not measured by this script: shown in
-# the kernel phase lines only, under a key that says so, never in the
-# kernels summary line
+# Fermat inverse; X2: one lane group's chain), quoted from the "before"
+# column of PERF.md's kernel tables (NVIDIA H100 80GB HBM3, 700.00 W), not
+# measured by this script: shown in the kernel phase lines only, under a
+# key that says so, never in the kernels summary line
 QUOTED_EARLIER_MS = {"final_exp_b1": 14.14, "final_exp_b2": 14.15, "fold_g1": 3.25,
                      "fold_g2": 13.09, "miller_product": 12.08, "miller_product_pair": 11.99,
                      "exp_g1": 4.35, "exp_g2": 16.86, "transcript_append_fq12": 0.238,
@@ -264,7 +275,10 @@ QUOTED_EARLIER_MS = {"final_exp_b1": 14.14, "final_exp_b2": 14.15, "fold_g1": 3.
                      "miller_step_d1": 0.1580, "miller_step_d2": 0.1580,
                      "miller_step_inf_d1": 0.1580, "miller_step_inf_d2": 0.1580,
                      "fq12_exp_n14": 17.09, "fq12_exp_edge_n100": 17.18,
-                     "fq_mul_n4096": 0.0461, "fq_mul_n1000": 0.0359}
+                     "fq_mul_n4096": 0.0461, "fq_mul_n1000": 0.0359,
+                     "msm_sum_g1": 0.6719, "msm_sum_g2": 1.3156,
+                     "msm_sum_g1_edge_n100": 0.5636, "msm_sum_g2_edge_n100": 1.0735,
+                     "msm_sum_g1_n4096": 16.268, "msm_sum_g2_n4096": 36.480}
 PROBE_ITERS = 4096
 SLEEP_MS = 50           # device_ms's head start over the host's enqueue
 PROBE_PERMS = 64
@@ -623,6 +637,63 @@ def x2_products(curve, lanes):
     return ADD_MIXED_PRODUCTS * per_fq2 * max(live - 1, 0) + counts[16] // 3
 
 
+def msm_define(name):
+    """A constant of csrc/msm.cu: MSM_CHUNK, the lanes one group of X2's
+    chunk launch chains, or MSM_GROUPS, the groups of a block."""
+    from sipp_tpu_torch.ops import _build
+
+    return int(re.search(rf"#define {name} (\d+)", (_build.CUDA_SRC / "msm.cu").read_text())[1])
+
+
+def x2_floor_ms(curve, lanes, total, cycles_per_product, sm_mhz):
+    """X2's latency floor over these lanes: ceil(log2 n) dependent complete
+    additions of X2_ADD_DEPTH product levels each (every bracketing of the
+    sum is a tree at least that deep), then, unless the sum `total` is at
+    infinity (all-zero), to_affine's chain: fq_inv's Fermat
+    square-and-multiply (256 squarings and a multiply a set bit of p - 2;
+    in G2 the norm's squares before it and a product after it), then
+    zinv^2, zinv^3 and y; an Fq2 product counted as one Fq product (its
+    parts on separate threads), at the probe's cycles a dependent Fq
+    product and the maximum SM clock, with no launch, load or store."""
+    from sipp_tpu_torch import params
+    from sipp_tpu_torch.curves import G2
+
+    inv = 256 + bin(params.P - 2).count("1") + (2 if curve is G2 else 0) + 3
+    levels = (lanes.shape[0] - 1).bit_length()
+    products = X2_ADD_DEPTH * levels + (0 if bool((total == 0).all()) else inv)
+    return products * cycles_per_product / (sm_mhz * 1e3)
+
+
+def x2_edge(curve, pts):
+    """100 lanes for X2 from K6-like lanes: a repeated lane that the chain
+    doubles (P, P), then -[2]P (the sum back at infinity), infinity lanes,
+    a cancelling pair (Q, -Q) and a lane repeated far from its twin."""
+    lanes = pts[:100].clone()
+    lanes[1] = lanes[0]
+    lanes[2] = curve.neg(curve.to_affine(curve.dbl(curve.jac_from_affine(lanes[0:1]))))[0]
+    lanes[[3, 40, 77]] = 0
+    lanes[5] = curve.neg(lanes[4:5])[0]
+    lanes[90] = lanes[6]
+    return lanes
+
+
+def x2_chunk_edges(curve, lanes, chunk, block):
+    """X2's chunk and block edges on K6's lanes: the second chunk repeats
+    the first (the block's tree doubles), the fourth negates the third (a
+    sum at infinity), the sixth is at infinity; the third block repeats the
+    second (the tree launch doubles), the fifth negates the fourth, the
+    seventh is at infinity.  chunk: lanes a group; block: lanes a block of
+    the chunk launch."""
+    lanes = lanes.clone()
+    lanes[chunk:2 * chunk] = lanes[:chunk]
+    lanes[3 * chunk:4 * chunk] = curve.neg(lanes[2 * chunk:3 * chunk])
+    lanes[5 * chunk:6 * chunk] = 0
+    lanes[2 * block:3 * block] = lanes[block:2 * block]
+    lanes[4 * block:5 * block] = curve.neg(lanes[3 * block:4 * block])
+    lanes[6 * block:7 * block] = 0
+    return lanes
+
+
 def challenges(a, b, proof):
     """(x_k, x_k^-1) of each round of a proof of (a, b), replayed on the
     host transcript."""
@@ -654,11 +725,12 @@ def sharded_launches(logn, shards=SHARDS):
                           "fold_g2": shards * rounds + tail}
 
 
-def run_large(dev, smi, imul_per_s, sleep_cycles, a128, b128):
+def run_large(dev, smi, imul_per_s, sleep_cycles, cycles, sm_mhz, a128, b128):
     """The n = 4096 phases on the seed-1177 instance, drawn on the card by
     K6: instance_4096, aggregation_4096, protocol_4096, kernels_4096 and
     sharded_4096, then their total seconds.  a128, b128: the host draw of
-    the n = 128 instance, which K6's draw must equal bit for bit.  Raises
+    the n = 128 instance, which K6's draw must equal bit for bit; cycles:
+    the Fq probe's cycles a dependent product (X2's latency floor).  Raises
     SystemExit where a check fails.  Returns ({case: kernel case as the
     n = 128 table holds it}, {path: launch counts})."""
     import torch
@@ -806,8 +878,11 @@ def run_large(dev, smi, imul_per_s, sleep_cycles, a128, b128):
     # each kernel at the n = 4096 path's own shapes against its plain
     # version: K1 over the instance (Z), K1 pair over round 1's cross
     # pairs, K3 on round 1's folds (2,048 lanes), and the verify's MSM
-    # finals: K6 over 4,096 lanes, then X2 over its output; X1 on B (K2,
-    # K4 and K5 take the same shapes at every n)
+    # finals: K6 over 4,096 lanes, then X2 over its output, and X2 over
+    # that output with chunk and block edges (x2_chunk_edges), over its two
+    # halves' negation (a sum at infinity) and over its first 3,971 lanes
+    # (63 blocks, the last of 3 lanes); X1 on B (K2, K4 and K5 take the
+    # same shapes at every n)
     m = n // 2
     pair_p = torch.stack([a[m:], a[:m]], dim=1).reshape(n, 2, 16)
     pair_q = torch.stack([b[:m], b[m:]], dim=1).reshape(n, 2, 2, 16)
@@ -815,6 +890,21 @@ def run_large(dev, smi, imul_per_s, sleep_cycles, a128, b128):
     msm_a, msm_b = (torch.as_tensor(v, device=dev) for v in (bits_a, bits_b))
     zeros_a, zeros_b = torch.zeros_like(a), torch.zeros_like(b)
     lanes_a, lanes_b = exp.exp_g1(a, zeros_a, msm_a), exp.exp_g2(b, zeros_b, msm_b)
+    chunk = msm_define("MSM_CHUNK")
+    x2_large = {}
+    for g, curve, lanes in (("g1", G1, lanes_a), ("g2", G2, lanes_b)):
+        x2_large[f"msm_sum_{g}_n4096"] = lanes
+        x2_large[f"msm_sum_{g}_chunk_edges_n4096"] = x2_chunk_edges(
+            curve, lanes, chunk, chunk * msm_define("MSM_GROUPS"))
+        x2_large[f"msm_sum_{g}_inf_n4096"] = torch.cat([lanes[:m], curve.neg(lanes[:m])])
+        x2_large[f"msm_sum_{g}_n3971"] = lanes[:3971]
+
+    def x2(name):
+        lanes, curve = x2_large[name], G2 if "_g2" in name else G1
+        kern = msm.msm_sum_g2 if curve is G2 else msm.msm_sum_g1
+        return (name, name[:len("msm_sum_g1")], lambda: kern(lanes),
+                lambda: msm.msm_finish_plain(curve, lanes), (lanes,))
+
     cases = [
         ("miller_product_n4096", "miller_product", lambda: miller.miller_product(a, b),
          lambda: miller.miller_product_plain(a, b), (a, b)),
@@ -829,17 +919,14 @@ def run_large(dev, smi, imul_per_s, sleep_cycles, a128, b128):
          lambda: exp.exp_g1_plain(a, zeros_a, msm_a), (a, zeros_a, msm_a)),
         ("exp_g2_n4096", "exp_g2", lambda: exp.exp_g2(b, zeros_b, msm_b),
          lambda: exp.exp_g2_plain(b, zeros_b, msm_b), (b, zeros_b, msm_b)),
-        ("msm_sum_g1_n4096", "msm_sum_g1", lambda: msm.msm_sum_g1(lanes_a),
-         lambda: msm.msm_finish_plain(G1, lanes_a), (lanes_a,)),
-        ("msm_sum_g2_n4096", "msm_sum_g2", lambda: msm.msm_sum_g2(lanes_b),
-         lambda: msm.msm_finish_plain(G2, lanes_b), (lanes_b,)),
+        *(x2(name) for name in x2_large),
         ("g2_torsion_n4096", "g2_torsion", lambda: x1.g2_torsion(b),
          lambda: x1.g2_torsion_plain(b), (b,)),
     ]
     products_needed = {"exp_g1_n4096": lambda p: p.get(16, 0) - k6_skipped(a, msm_a),
                        "exp_g2_n4096": lambda p: p.get(16, 0) - 3 * k6_skipped(b, msm_b),
-                       "msm_sum_g1_n4096": lambda p: x2_products(G1, lanes_a),
-                       "msm_sum_g2_n4096": lambda p: x2_products(G2, lanes_b)}
+                       **{name: (lambda p, lanes=lanes, curve=G2 if "_g2" in name else G1:
+                                 x2_products(curve, lanes)) for name, lanes in x2_large.items()}}
     table = {}
     for name, counter, kern, plain, inputs in cases:
         t_case = time.time()
@@ -858,14 +945,23 @@ def run_large(dev, smi, imul_per_s, sleep_cycles, a128, b128):
                        "replaces": replaces, "counter": counter, "max_abs_err": err,
                        "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": None}
+        extra = ({"earlier_ms_quoted_from_perf_md": QUOTED_EARLIER_MS[name]}
+                 if name in QUOTED_EARLIER_MS else {})
+        if name in x2_large:
+            table[name]["latency_floor_ms"] = extra["latency_floor_ms"] = x2_floor_ms(
+                G2 if "_g2" in name else G1, x2_large[name], want_k, cycles, sm_mhz)
         emit({"phase": "kernels_4096", "n": n, "name": name,
               "shape": [list(t.shape) for t in tensors(got_k)], "bit_equal": ok,
-              "max_abs_err": err, "tolerance": 0, "ms": k_ms, "device_ms": d_ms,
+              "max_abs_err": err, "tolerance": 0, "ms": k_ms, "device_ms": d_ms, **extra,
               "plain_ms": p_ms, "plain_products": products, "products_needed": needed,
               "bound_ms": bound_ms, "bound_by": bound_by, "seconds": time.time() - t_case,
               "card": smi})
         if not ok:
             raise SystemExit(f"kernel {name} disagrees with its plain version at n = 4096")
+    if not all(bool((out == 0).all()) for out in (
+            msm.msm_sum_g1(x2_large["msm_sum_g1_inf_n4096"]),
+            msm.msm_sum_g2(x2_large["msm_sum_g2_inf_n4096"]))):
+        raise SystemExit("X2's sum at infinity is not all-zero limbs at n = 4096")
 
     # ------------------------------------------------------- sharded_4096
     t_phase = time.time()
@@ -1155,23 +1251,19 @@ def main():
         return (lambda: x1.g2_torsion(pts), lambda: x1.g2_torsion_plain(pts), (pts,))
 
     # X2 inputs: K6's output at the MSM finals' 128 lanes (the verifier's
-    # call); and 100 lanes with a repeated lane that the chain doubles
-    # (P, P), then -[2]P (the sum back at infinity), infinity lanes, a
-    # cancelling pair (Q, -Q) and a lane repeated far from its twin
+    # call); 100 lanes with a repeated lane that the chain doubles, a lane
+    # that cancels the sum, infinity lanes and a cancelling pair (x2_edge);
+    # the first lane alone and the first MSM_CHUNK + 1 (a chunk and one
+    # lane) of K6's output
     k6_out = {"g1": exp.exp_g1(a, zeros_a, msm_a), "g2": exp.exp_g2(b, zeros_b, msm_b)}
-
-    def x2_edge(curve, pts):
-        lanes = pts[:E].clone()
-        lanes[1] = lanes[0]
-        lanes[2] = curve.neg(curve.to_affine(curve.dbl(curve.jac_from_affine(lanes[0:1]))))[0]
-        lanes[[3, 40, 77]] = 0
-        lanes[5] = curve.neg(lanes[4:5])[0]
-        lanes[90] = lanes[6]
-        return lanes
-
+    chunk = msm_define("MSM_CHUNK")
     x2_lanes = {"msm_sum_g1": k6_out["g1"], "msm_sum_g2": k6_out["g2"],
-                "msm_sum_g1_edge_n100": x2_edge(G1, a), "msm_sum_g2_edge_n100": x2_edge(G2, b)}
+                "msm_sum_g1_edge_n100": x2_edge(G1, a), "msm_sum_g2_edge_n100": x2_edge(G2, b),
+                "msm_sum_g1_n1": k6_out["g1"][:1], "msm_sum_g2_n1": k6_out["g2"][:1],
+                f"msm_sum_g1_n{chunk + 1}": k6_out["g1"][:chunk + 1],
+                f"msm_sum_g2_n{chunk + 1}": k6_out["g2"][:chunk + 1]}
     x2_src = KERNEL_SOURCES["msm_sum_g2"]
+    cycles = probe["fq_mul"]["cycles_per_product"]
 
     def x2_case(name):
         lanes, curve = x2_lanes[name], G2 if "g2" in name else G1
@@ -1228,7 +1320,7 @@ def main():
         ("fq12_exp_edge_n100", "fq12_exp", *k8_src, *k8(e8_x, e8_off, e8_bits)),
         ("g2_torsion", "g2_torsion", *x1_src, *x1_case(b)),
         ("g2_torsion_forged_n100", "g2_torsion", *x1_src, *x1_case(forged_b)),
-        *((name, name.split("_edge")[0], *x2_src, *x2_case(name)) for name in x2_lanes),
+        *((name, name[:len("msm_sum_g1")], *x2_src, *x2_case(name)) for name in x2_lanes),
     ]
     skipped = {"exp_g1": k6_skipped(a, msm_a), "exp_g2": 3 * k6_skipped(b, msm_b),
                "exp_g1_edge_n100": k6_skipped(ex1, edge_bits),
@@ -1261,6 +1353,9 @@ def main():
                          + inv["inverse_cycles"][0] / (sm_mhz * 1e3))
         elif name in chain:
             imuls = FQ_PRODUCT_IMULS * chain[name]
+            if name in x2_lanes:
+                extra["latency_floor_ms"] = x2_floor_ms(
+                    G2 if "g2" in name else G1, x2_lanes[name], want, cycles, sm_mhz)
         else:
             # an Fq12 squaring needs the complex squaring's products
             sqr_saved = (FQ12_MUL_PRODUCTS - FQ12_SQR_PRODUCTS) * products.get("fq12_sqr", 0)
@@ -1271,6 +1366,8 @@ def main():
                        "replaces": replaces, "counter": counter, "max_abs_err": err,
                        "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        if counter.startswith("msm_sum"):
+            table[name]["latency_floor_ms"] = extra["latency_floor_ms"]
         emit({"phase": "kernel", "name": name, "shape": [list(t.shape) for t in tensors(got)],
               "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms,
               "device_ms": d_ms, **extra,
@@ -1828,7 +1925,8 @@ def main():
                          f"ran other than once a verify: {missing}")
 
     # ------------------------------------------- 11. the n = 4096 phases
-    table_large, paths_large = run_large(dev, smi, imul_per_s, sleep_cycles, a, b)
+    table_large, paths_large = run_large(dev, smi, imul_per_s, sleep_cycles, cycles, sm_mhz,
+                                         a, b)
     paths.update(paths_large)
 
     # -------------------------------------------------------- 12. summary
@@ -1855,8 +1953,10 @@ def main():
         row = rows[case["counter"]]
         row["cases"] += 1
         row["max_abs_err"] = max(row["max_abs_err"], case["max_abs_err"])
-        row[f"n{N_LARGE}"] = {k: case[k] for k in ("name", "ms", "device_ms", "plain_ms",
-                                                   "bound_ms", "bound_by")}
+        # the first n = 4096 case of a row: the main path's shape
+        row.setdefault(f"n{N_LARGE}", {k: case[k] for k in (
+            "name", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "latency_floor_ms")
+            if k in case})
     emit({"kernels": sorted(rows.values(), key=lambda r: r["id"])})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-// The staged Jacobian doubling, mixed addition and complete mixed addition
-// of the curve ladders K3 (fold.cu: lo + [x] hi, one shared scalar), K6
-// (exp.cu: off_i + [k_i] x_i, a scalar per lane), X1 (validate.cu: [r]Q per
-// lane) and the chain of X2 (msm.cu: the sum of the lanes), over G1 (Fq)
-// and G2 (Fq2), one definition for every kernel.
+// The staged Jacobian doubling, mixed addition, complete mixed addition
+// and complete Jacobian addition of the curve ladders K3 (fold.cu: lo + [x]
+// hi, one shared scalar), K6 (exp.cu: off_i + [k_i] x_i, a scalar per
+// lane), X1 (validate.cu: [r]Q per lane) and of X2's chunks and tree
+// (msm.cu: the sum of the lanes), over G1 (Fq) and G2 (Fq2), one
+// definition for every kernel.
 //
 // What bounds a ladder on the H100: latency.  A fold round has 64 to 1 live
 // lanes and the MSM finals 128, so the grid fills a few SMs at most, and
@@ -36,14 +37,16 @@
 // * the affine conversion runs on thread 0 of the group: its Fermat
 //   inversion, ~380 dependent Fq products, is a ladder's serial floor.
 // * the complete addition (add_complete_staged: K6's offset, X1's ladder,
-//   X2's chain) is the staged addition, then the staged doubling of the
+//   X2's chunks) is the staged addition, then the staged doubling of the
 //   addend where the addition met P == Q; the doubling's stages run only
 //   where a lane of the warp needs them (a vote), so a chain that never
 //   meets P == Q (every honest one) pays the 5 stages of the addition.
-// ops/schedule.py (dbl_staged, add_mixed_staged) is the plain version of
-// these stages, checked against curves' own by tests/test_torch_schedule.py;
-// the complete addition is held against curves' add_mixed(p, q, dbl(q))
-// there, emulated.
+//   X2's tree adds two Jacobian points (add_jacobian_staged), also in 5
+//   stages, with the same vote for its doubling.
+// ops/schedule.py (dbl_staged, add_mixed_staged, add_jacobian_staged) is
+// the plain version of these stages, checked against curves' own by
+// tests/test_torch_schedule.py; the complete additions are held against
+// curves' add_mixed(p, q, dbl(q)) and add there, emulated.
 #pragma once
 #include "bn254.cuh"
 
@@ -246,6 +249,67 @@ static __device__ __noinline__ void add_complete_staged(FoldLane<F>& L, const ty
         __syncwarp();
         dbl_staged<F>(L, sub, same);
     }
+}
+
+// acc += (qX, qY, qZ) Jacobian, complete (curves' add): 5 stages of
+// independent products, {Z1^2, Z2^2, Y1 Z2, Y2 Z1}, {U1 = X1 Z2^2,
+// U2 = X2 Z1^2, S1 = Y1 Z2 Z2^2, S2 = Y2 Z1 Z1^2}, {H^2, R^2, Z1 Z2},
+// {H HH, U1 HH, Z1Z2 H}, {R (V - X3), S1 HHH}: the depth of the formulas
+// (curves' six groups, with Z2^3 and Z1 Z2 moved up a stage), the same
+// canonical values.  Then, on lanes where both are finite and H = R = 0
+// (P == Q), the staged doubling of acc, committed there only (a vote, as
+// add_complete_staged); P == -Q gives Z3 = Z1 Z2 H = 0 by itself.  q at
+// infinity leaves acc, acc at infinity gives q, a false `take` commits
+// nothing.  q may lie in another lane's slots (X2's tree: that lane's
+// group only reads during the call), never in this lane's s[].
+// s: 0 Z1Z1, 1 Z2Z2, 2 Y1 Z2, 3 Y2 Z1, 4 U1, 5 U2, 6 S1, 7 S2, 8 HH, 9 RR,
+// 10 Z1Z2, 11 H, 12 R; then 0 HHH, 1 V, 2 Z3, 3 R (V - X3), 4 S1 HHH
+template <class F>
+static __device__ __noinline__ void add_jacobian_staged(FoldLane<F>& L, const typename F::T& qX,
+                                                        const typename F::T& qY,
+                                                        const typename F::T& qZ, int sub,
+                                                        bool take) {
+    typedef typename F::T T;
+    const bool inf1 = F::is_zero(L.Z), inf2 = F::is_zero(qZ);
+    F::mul(L.s[sub], sub == 0 ? L.Z : sub == 1 ? qZ : sub == 2 ? L.Y : qY,
+           sub == 0 ? L.Z : sub == 1 ? qZ : sub == 2 ? qZ : L.Z);
+    __syncwarp();
+    F::mul(L.s[4 + sub], sub == 0 ? L.X : sub == 1 ? qX : L.s[sub], L.s[sub & 1 ? 0 : 1]);
+    __syncwarp();
+    if (sub < 3) {
+        // H (threads 0, 2) or R (thread 1); HH, RR, Z1 Z2
+        T x;
+        F::sub(x, sub == 1 ? L.s[7] : L.s[5], sub == 1 ? L.s[6] : L.s[4]);
+        if (sub < 2) L.s[11 + sub] = x;
+        F::mul(L.s[8 + sub], sub == 2 ? L.Z : x, sub == 2 ? qZ : x);
+    }
+    __syncwarp();
+    if (sub < 3)
+        F::mul(L.s[sub], sub == 0 ? L.s[11] : sub == 1 ? L.s[4] : L.s[10],
+               sub == 2 ? L.s[11] : L.s[8]);
+    __syncwarp();
+    T X3, t;
+    F::sub(X3, L.s[9], L.s[0]);
+    F::sub(X3, X3, L.s[1]);
+    F::sub(X3, X3, L.s[1]);
+    F::sub(t, L.s[1], X3);
+    const int k = F::pair_index(sub);
+    F::mul_pair(L.s + 3, k ? L.s[6] : L.s[12], k ? L.s[0] : t, L.part, sub);
+    __syncwarp();
+    const bool same = take && !inf1 && !inf2 && F::is_zero(L.s[11]) && F::is_zero(L.s[12]);
+    if (sub == 0 && take && !inf2 && !same) {
+        if (inf1) {
+            L.X = qX;
+            L.Y = qY;
+            L.Z = qZ;
+        } else {
+            L.X = X3;
+            F::sub(L.Y, L.s[3], L.s[4]);
+            L.Z = L.s[2];
+        }
+    }
+    __syncwarp();
+    if (__any_sync(0xffffffffu, same)) dbl_staged<F>(L, sub, same);
 }
 
 // Jacobian -> affine (x, y) of the accumulator, infinity -> (0, 0), stored

@@ -318,8 +318,9 @@ def cuda_library(src: pathlib.Path = CUDA_SRC):
         "sipp_fq_mul": [vp, vp, vp, ci, vp],
         "sipp_fq_mul_probe": [vp, vp, ci, vp],
         "sipp_g2_torsion": [vp, vp, ci, vp],
-        "sipp_msm_sum_g1": [vp, vp, ci, vp],
-        "sipp_msm_sum_g2": [vp, vp, ci, vp],
+        "sipp_msm_blocks": [ci],
+        "sipp_msm_sum_g1": [vp, vp, vp, ci, vp],
+        "sipp_msm_sum_g2": [vp, vp, vp, ci, vp],
         "sipp_empty_launch": [vp],
     }.items():
         fn = getattr(lib, name)

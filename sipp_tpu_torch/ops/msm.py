@@ -8,8 +8,13 @@ complete additions.  The verifier's MSM finals run the ladder as kernel K6
 msm_sum_g2) for CUDA tensors, replacing the XLA _tree_sum + to_affine of
 sipp_tpu/protocol/verifier.py:_finals_msm_dev (no Pallas counterpart), and
 msm_finish_plain, the complete-add tree and to_affine, for CPU tensors;
-there is no other route.  Bound on the H100 and design: see the note at
-the top of csrc/msm.cu.
+there is no other route.  X2 is two launches of one kernel: a chunk launch
+whose lane groups chain a few lanes each and add pairwise inside their
+block, writing a Jacobian partial a block to a scratch tensor that the
+wrapper allocates, then a tree launch of one block that sums the partials
+the same way and converts to affine; one block's lanes need the chunk
+launch alone.  Bound on the H100 and design: see the note at the top of
+csrc/msm.cu.
 
 Fixed-window bucket form (msm_bucket, msm_bucket_sharded): per c-bit window
 the points are sorted by digit, a segmented scan sums each bucket, and the
@@ -60,18 +65,25 @@ def msm_finish_plain(curve, lanes):
 
 def _msm_sum(wrapper, lanes, tail):
     """lanes: (n, *tail) affine int64 limbs on a card, n >= 1 -> (1, *tail)
-    canonical affine.  Counts the launch on `wrapper`."""
+    canonical affine.  Counts one launch a call on `wrapper` (the chunk
+    launch and, past one block, the tree launch)."""
     which = wrapper.__name__
     lanes = _build.check_cuda_input(lanes, "lanes", tail)
     if lanes.dim() != len(tail) + 1 or lanes.shape[0] < 1:
         raise ValueError(f"{which}: expected (n, {', '.join(map(str, tail))}) lanes, "
                          f"got {tuple(lanes.shape)}")
     lib = _build.cuda_library()
+    n = lanes.shape[0]
     out = lanes.new_empty((1, *tail))
+    # the chunk launch's Jacobian partials, which the tree launch sums
+    # (none where one block holds every lane)
+    blocks = lib.sipp_msm_blocks(n)
+    partials = lanes.new_empty((blocks, 3, *tail[1:])) if blocks > 1 else None
     with torch.cuda.device(lanes.device):
         stream = torch.cuda.current_stream(lanes.device).cuda_stream
-        err = getattr(lib, f"sipp_{which}")(lanes.data_ptr(), out.data_ptr(), lanes.shape[0],
-                                            stream)
+        err = getattr(lib, f"sipp_{which}")(lanes.data_ptr(),
+                                            None if partials is None else partials.data_ptr(),
+                                            out.data_ptr(), n, stream)
     _build.check_launch(lib, err, which)
     wrapper.launches += 1
     return out

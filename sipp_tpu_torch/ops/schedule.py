@@ -322,6 +322,32 @@ def add_mixed_staged(C, p, q_aff):
     return torch.where(C._expand(C.is_affine_infinity(q_aff)), p, out)
 
 
+def add_jacobian_staged(C, p, q):
+    """p + q (both Jacobian), complete, in ladder.cuh's five stages (X2's
+    tree): {Z1^2, Z2^2, Y1 Z2, Y2 Z1}, {U1 = X1 Z2^2, U2 = X2 Z1^2,
+    S1 = Y1 Z2 Z2^2, S2 = Y2 Z1 Z1^2}, {H^2, R^2, Z1 Z2}, {H HH, U1 HH,
+    Z1Z2 H}, {R (V - X3), S1 HHH}; then the selects: P == Q (both finite,
+    H = R = 0) gives the staged doubling of p, p at infinity gives q, q at
+    infinity leaves p (P == -Q gives Z3 = 0 by itself)."""
+    f, F_ = C.f, C.F
+    X1, Y1, Z1 = C._c(p, 0), C._c(p, 1), C._c(p, 2)
+    X2, Y2, Z2 = C._c(q, 0), C._c(q, 1), C._c(q, 2)
+    Z1Z1, Z2Z2, Y1Z2, Y2Z1 = f.mul(torch.stack([Z1, Z2, Y1, Y2]),
+                                   torch.stack([Z1, Z2, Z2, Z1])).unbind(0)
+    U1, U2, S1, S2 = f.mul(torch.stack([X1, X2, Y1Z2, Y2Z1]),
+                           torch.stack([Z2Z2, Z1Z1, Z2Z2, Z1Z1])).unbind(0)
+    H, R = F_.sub(U2, U1), F_.sub(S2, S1)
+    HH, RR, Z1Z2 = f.mul(torch.stack([H, R, Z1]), torch.stack([H, R, Z2])).unbind(0)
+    HHH, V, Z3 = f.mul(torch.stack([H, U1, Z1Z2]), torch.stack([HH, HH, H])).unbind(0)
+    X3 = F_.sub(F_.sub(F_.sub(RR, HHH), V), V)
+    Ya, Yb = f.mul(torch.stack([R, S1]), torch.stack([F_.sub(V, X3), HHH])).unbind(0)
+    out = C._pt(X3, F_.sub(Ya, Yb), Z3)
+    same = f.is_zero(H) & f.is_zero(R) & ~f.is_zero(Z1) & ~f.is_zero(Z2)
+    out = torch.where(C._expand(same), dbl_staged(C, p), out)
+    out = torch.where(C._expand(f.is_zero(Z1)), q, out)
+    return torch.where(C._expand(f.is_zero(Z2)), p, out)
+
+
 # ------------------------------------------------- K1's Miller program
 #
 # K1 (csrc/miller.cu) runs each Miller lane on one warp as a program of

@@ -28,7 +28,14 @@
 //                             ladder.cuh's add_complete_staged p + q (N, 3, 16)
 //   sim add_complete_g2 N in out
 //                             the same over Fq2: (N, 3, 2, 16), (N, 2, 2, 16)
-//   sim msm_sum_g1 N in out   lanes (N, 2, 16) -> X2's sum (1, 2, 16)
+//   sim add_jacobian_g1 N in out
+//                             p, q (N, 3, 16) Jacobian -> ladder.cuh's
+//                             add_jacobian_staged p + q (N, 3, 16)
+//   sim add_jacobian_g2 N in out
+//                             the same over Fq2: (N, 3, 2, 16)
+//   sim msm_sum_g1 N in out   lanes (N, 2, 16) -> X2's sum (1, 2, 16): the
+//                             chunk launch block by block, then the tree
+//                             launch
 //   sim msm_sum_g2 N in out   lanes (N, 2, 2, 16) -> X2's sum (1, 2, 2, 16)
 //
 // in and out hold int64 limbs (round, permute: u64 words), C order, in the
@@ -75,6 +82,56 @@ static void add_complete_lanes(const long long* p, const long long* q, long long
                 F::store(out + pj, L.X); F::store(out + pj + F::LIMBS, L.Y);
                 F::store(out + pj + 2 * F::LIMBS, L.Z);
             }
+        });
+}
+
+// p + q with add_jacobian_staged, lane by lane: p, q (n, 3, LIMBS) Jacobian
+// -> out (n, 3, LIMBS); FOLD_LANES lanes a block, q in the lane's hx, hy, lx
+template <class F>
+static void add_jacobian_lanes(const long long* p, const long long* q, long long* out, int n) {
+    for (int blk = 0; blk < (n + FOLD_LANES - 1) / FOLD_LANES; blk++)
+        run_block(blk, FOLD_LANES * FOLD_GROUP, [&] {
+            __shared__ FoldLane<F> lanes[FOLD_LANES];
+            const int sub = threadIdx.x % FOLD_GROUP;
+            const int lane = blockIdx.x * FOLD_LANES + threadIdx.x / FOLD_GROUP;
+            const bool live = lane < n;
+            FoldLane<F>& L = lanes[threadIdx.x / FOLD_GROUP];
+            const size_t j = (size_t)lane * 3 * F::LIMBS;
+            if (sub == 0) {
+                F::zero(L.zero);
+                F::zero(L.X); F::zero(L.Y); F::zero(L.Z);
+                F::zero(L.hx); F::zero(L.hy); F::zero(L.lx);
+                if (live) {
+                    F::load(L.X, p + j); F::load(L.Y, p + j + F::LIMBS);
+                    F::load(L.Z, p + j + 2 * F::LIMBS);
+                    F::load(L.hx, q + j); F::load(L.hy, q + j + F::LIMBS);
+                    F::load(L.lx, q + j + 2 * F::LIMBS);
+                }
+            }
+            __syncwarp();
+            add_jacobian_staged<F>(L, L.hx, L.hy, L.lx, sub, true);
+            if (sub == 0 && live) {
+                F::store(out + j, L.X); F::store(out + j + F::LIMBS, L.Y);
+                F::store(out + j + 2 * F::LIMBS, L.Z);
+            }
+        });
+}
+
+// X2 as msm.cu's launcher runs it: the chunk launch block by block (the
+// affine sum itself where one block holds every lane), then the tree launch
+template <class F>
+static void msm_sum(const long long* pts, long long* out, int n) {
+    const int blocks = msm_blocks(n);
+    std::vector<long long> partials((size_t)blocks * 3 * F::LIMBS);
+    for (int b = 0; b < blocks; b++)
+        run_block(b, MSM_THREADS, [&] {
+            msm_sum_kernel<F, false>(pts, blocks == 1 ? out : partials.data(), n, MSM_CHUNK,
+                                     blocks == 1);
+        });
+    if (blocks > 1)
+        run_block(0, MSM_THREADS, [&] {
+            msm_sum_kernel<F, true>(partials.data(), out, blocks,
+                                    (blocks + MSM_GROUPS - 1) / MSM_GROUPS, true);
         });
 }
 
@@ -191,13 +248,18 @@ int main(int argc, char** argv) {
             add_complete_lanes<G2Field>(in.data(), in.data() + (size_t)n * 96, out.data(), n);
         else
             add_complete_lanes<G1Field>(in.data(), in.data() + (size_t)n * 48, out.data(), n);
+    } else if (!strncmp(mode, "add_jacobian_g", 14)) {
+        const int limbs = mode[14] == '2' ? 32 : 16;
+        out.resize((size_t)n * 3 * limbs);
+        if (limbs == 32)
+            add_jacobian_lanes<G2Field>(in.data(), in.data() + (size_t)n * 96, out.data(), n);
+        else
+            add_jacobian_lanes<G1Field>(in.data(), in.data() + (size_t)n * 48, out.data(), n);
     } else if (!strncmp(mode, "msm_sum_g", 9)) {
         const bool g2 = mode[9] == '2';
         out.resize(g2 ? 64 : 32);
-        run_block(0, FOLD_LANES * FOLD_GROUP, [&] {
-            if (g2) msm_sum_kernel<G2Field>(in.data(), out.data(), n);
-            else msm_sum_kernel<G1Field>(in.data(), out.data(), n);
-        });
+        if (g2) msm_sum<G2Field>(in.data(), out.data(), n);
+        else msm_sum<G1Field>(in.data(), out.data(), n);
     } else if (!strncmp(mode, "miller", 6)) {
         const int pair = !strcmp(mode, "miller_pair");
         const int k = pair ? 2 : 1;

@@ -161,6 +161,36 @@ def test_staged_add_mixed_matches_curves(points, group):
         assert torch.equal(schedule.add_mixed_staged(C, p, q), C.add_mixed(p, q))
 
 
+def jacobian_pairs(C, pts):
+    """Jacobian p, q for the complete Jacobian addition at 9 lanes: P == Q
+    under another Z (lane 0) and under the same one (7), P == -Q (1), q at
+    infinity (2), p at infinity (3), both (4), Z = 0 under other X and Y
+    in p (5) and in q (6), and a generic lane (8)."""
+    p = C.dbl(C.add_mixed(C.dbl(C.jac_from_affine(torch.roll(pts, 1, 0))), pts))
+    lam = C.f.mul(C._c(p, 2), C._c(p, 0))                    # any non-zero scale
+    lam2 = C.f.mul(lam, lam)
+    q = C._pt(C.f.mul(C._c(p, 0), lam2), C.f.mul(C._c(p, 1), C.f.mul(lam2, lam)),
+              C.f.mul(C._c(p, 2), lam))                       # the same points
+    q[1] = C.neg(q[1:2])[0]
+    q[8] = C.dbl(p[8:9])[0]
+    q[7] = p[7]
+    q[[2, 4]] = 0
+    p[[3, 4]] = 0
+    p[5].select(0, 2).zero_()
+    q[6].select(0, 2).zero_()
+    return p, q
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_staged_add_jacobian_matches_curves(group):
+    """X2's Jacobian addition (the tree's) on P == Q, P == -Q and infinity
+    on either side."""
+    a, b = random_instance(9, seed=21, device="cpu")
+    C, pts = (G1, a) if group == "g1" else (G2, b)
+    p, q = jacobian_pairs(C, pts)
+    assert torch.equal(schedule.add_jacobian_staged(C, p, q), C.add(p, q))
+
+
 def _miller_op(name):
     return schedule.M_OPS[schedule.M_OP_ID[name]]
 
@@ -506,6 +536,20 @@ def test_add_complete_kernel_emulated_matches_plain(sim, group):
     assert bool(C.is_infinity(got[1:2]).all()) and bool(C.is_infinity(got[5:6]).all())
 
 
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_add_jacobian_kernel_emulated_matches_plain(sim, group):
+    """ladder.cuh's add_jacobian_staged (X2's tree) at 9 lanes (two blocks)
+    against curves' add: P == Q under two Z and one, P == -Q, infinity on
+    either side and both, Z = 0 under other X and Y, a generic lane."""
+    a, b = random_instance(9, seed=21, device="cpu")
+    C, pts = (G1, a) if group == "g1" else (G2, b)
+    p, q = jacobian_pairs(C, pts)
+    got = run_sim(sim, f"add_jacobian_{group}", 9, [p, q]).reshape(p.shape)
+    assert torch.equal(got, C.add(p, q))
+    assert torch.equal(C.to_affine(got[[0, 7]]), C.to_affine(C.dbl(p[[0, 7]])))
+    assert bool(C.is_infinity(got[[1, 4]]).all())
+
+
 def test_torsion_kernel_emulated_matches_plain(sim):
     """X1's device code (validate.cu) at 8 lanes (one block): honest points,
     three off the r-torsion (the raw map), one of the cofactor's order
@@ -524,30 +568,73 @@ def test_torsion_kernel_emulated_matches_plain(sim):
     assert want.tolist() == [1, 0, 1, 1, 0, 0, 0, 1]
 
 
-def msm_lanes(C, pts, case):
-    """K6-like affine lanes for X2: "edge": a repeated lane that the chain
-    doubles (P, P), then -[2]P (the sum back at infinity), an infinity
-    lane, a cancelling pair (Q, -Q) and a lane repeated far from its twin;
-    "all_inf": every lane at infinity."""
-    lanes = pts.clone()
+MSM_SRC = (_build.CUDA_SRC / "msm.cu").read_text()
+MSM_CONST = {k: int(re.search(rf"#define {k} (\d+)", MSM_SRC)[1])
+             for k in ("MSM_CHUNK", "MSM_GROUPS")}
+# X2's cases past the first ones: n as a function of the chunk (lanes a
+# group) and the block (lanes a block of the chunk launch)
+MSM_CASES = {"edge": lambda c, blk: 10, "all_inf": lambda c, blk: 3,
+             "n1": lambda c, blk: 1, "chunk_plus_one": lambda c, blk: c + 1,
+             "ragged": lambda c, blk: 2 * blk + 3 * c + 1,
+             "tree_chains": lambda c, blk: MSM_CONST["MSM_GROUPS"] * blk + c + 1,
+             "equal_chunks": lambda c, blk: 2 * blk,
+             "cancel_chunks": lambda c, blk: 2 * blk + c,
+             "inf_chunk": lambda c, blk: 2 * blk + 2}
+
+
+@pytest.fixture(scope="module")
+def msm_pool():
+    """Distinct affine points of G1 and G2, the pairwise sums of 33 seeded
+    ones (1,089 a group, enough for every case)."""
+    a, b = random_instance(33, seed=25, device="cpu")
+    i, j = torch.triu_indices(33, 33).unbind(0)
+    i, j = torch.cat([i, j[j != i]]), torch.cat([j, i[j != i]])
+    return {C: C.to_affine(C.add(C.lift(pts[i]), C.lift(pts[j]))) for C, pts in ((G1, a), (G2, b))}
+
+
+def msm_lanes(C, pool, case):
+    """Affine lanes for X2 (K6's output form): "edge": a repeated lane that
+    the chain doubles (P, P), then -[2]P (the sum back at infinity), an
+    infinity lane, a cancelling pair (Q, -Q) and a lane repeated far from
+    its twin; "all_inf": every lane at infinity; "n1", "chunk_plus_one",
+    "ragged" (several blocks and a tail: a partial count that is not a
+    power of two), "tree_chains" (more partials than the tree block has
+    groups: its groups chain them) on distinct points; "equal_chunks": the
+    second chunk repeats the first (the block's tree doubles) and the
+    second block the first (the tree launch doubles); "cancel_chunks": the
+    second chunk and the second block negate the first (sums at infinity
+    before a tail chunk); "inf_chunk": a chunk and a block at infinity."""
+    c = MSM_CONST["MSM_CHUNK"]
+    blk = c * MSM_CONST["MSM_GROUPS"]
+    n = MSM_CASES[case](c, blk)
+    lanes = pool[:n].clone()
     if case == "all_inf":
-        return torch.zeros_like(lanes[:3])
-    lanes[1] = lanes[0]
-    lanes[2] = C.neg(C.to_affine(C.dbl(C.jac_from_affine(lanes[0:1]))))[0]
-    lanes[3] = 0
-    lanes[5] = C.neg(lanes[4:5])[0]
-    lanes[9] = lanes[6]
+        return torch.zeros_like(lanes)
+    if case == "edge":
+        lanes[1] = lanes[0]
+        lanes[2] = C.neg(C.to_affine(C.dbl(C.jac_from_affine(lanes[0:1]))))[0]
+        lanes[3] = 0
+        lanes[5] = C.neg(lanes[4:5])[0]
+        lanes[9] = lanes[6]
+    elif case == "equal_chunks":
+        lanes[c:2 * c] = lanes[:c]
+        lanes[blk:] = lanes[:blk]
+    elif case == "cancel_chunks":
+        lanes[c:2 * c] = C.neg(lanes[:c])
+        lanes[blk:2 * blk] = C.neg(lanes[:blk])
+    elif case == "inf_chunk":
+        lanes[c:2 * c] = 0
+        lanes[blk:2 * blk] = 0
     return lanes
 
 
-@pytest.mark.parametrize("case", ["edge", "all_inf"])
+@pytest.mark.parametrize("case", list(MSM_CASES))
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_msm_sum_kernel_emulated_matches_plain(sim, group, case):
-    """X2's device code (msm.cu) against msm_finish_plain, on 10 lanes with
-    infinity, repeated and cancelling lanes, and on lanes all at infinity."""
-    a, b = random_instance(10, seed=25, device="cpu")
-    C, pts = (G1, a) if group == "g1" else (G2, b)
-    lanes = msm_lanes(C, pts, case)
+def test_msm_sum_kernel_emulated_matches_plain(sim, msm_pool, group, case):
+    """X2's device code (msm.cu: the chunk launch block by block, then the
+    tree launch) against msm_finish_plain, on the cases of msm_lanes."""
+    C = G1 if group == "g1" else G2
+    lanes = msm_lanes(C, msm_pool[C], case)
     want = msm.msm_finish_plain(C, lanes)
     got = run_sim(sim, f"msm_sum_{group}", lanes.shape[0], [lanes]).reshape(want.shape)
     assert torch.equal(got, want)

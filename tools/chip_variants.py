@@ -15,16 +15,19 @@ through the port's own wrappers (ops/miller.py, fexp.py, exp.py):
   shared-memory tile, called through PR 7's wrapper (fq_mul_pr7 below):
   the "before" of K0's redesign;
 * ``tile256``: K0 with tiles of 256 elements (8 warps a block) instead of
-  32 (a warp), the larger tile that a large B might have wanted.
+  32 (a warp), the larger tile that a large B might have wanted;
+* ``chunk2``, ``chunk8``, ``chunk16``: X2 (msm.cu) with MSM_CHUNK 2, 8 or
+  16 lanes a group in its chunk launch instead of 4 (the wrapper reads the
+  partials' count from the variant's own library).
 
 The chosen variants (all by default) run in turns, in order and then in
-reverse (words, bytes, window1, fq_pr7, tile256, tile256, fq_pr7,
-window1, bytes, words), on
-the same inputs: K0 at B = 4096 (random_batch, seed 1177) and B = 2^20
+reverse (words, bytes, ..., chunk16, chunk16, ..., bytes, words), on the
+same inputs: K0 at B = 4096 (random_batch, seed 1177) and B = 2^20
 (uniform_batch), K1 at the aggregation's 128 lanes (seed 1177), K2 at B = 1,
-K7 on the loop's first carry for digits 0 and 1, and K8 on 14 lanes of
+K7 on the loop's first carry for digits 0 and 1, K8 on 14 lanes of
 seeded Fq12 values off the cyclotomic subgroup with seeded 254-bit
-exponents.  Every output is compared with the plain version (tolerance 0).
+exponents, and X2 over the seed-1177 instance's A and B at n = 4096 and
+their first 128 lanes.  Every output is compared with the plain version (tolerance 0).
 A time is read as chip_smoke.py reads it: ``ms`` by CUDA events around one
 wrapper call, ``device_ms`` over launches queued behind a sleep.  With
 ``words`` and ``fq_pr7`` both chosen, K0's wrapper split follows: the
@@ -82,9 +85,11 @@ PATCHES = {
                 "        (const long long*)a, (const long long*)b, (long long*)out, n);\n"
                 "    return (int)cudaGetLastError();\n")],
     "tile256": [("fq.cu", "#define FQ_MUL_TILE 32 ", "#define FQ_MUL_TILE 256 ")],
+    **{f"chunk{c}": [("msm.cu", "#define MSM_CHUNK 4 ", f"#define MSM_CHUNK {c} ")]
+       for c in (2, 8, 16)},
 }
 KERNELS = ("miller_product_kernel", "final_exp_kernel", "miller_step_kernel",
-           "fq12_exp_kernel", "fq_mul")
+           "fq12_exp_kernel", "fq_mul", "msm_sum_kernel")
 
 
 def fq_mul_pr7(a, b):
@@ -196,7 +201,8 @@ def main():
     from sipp_tpu_torch import params
     from sipp_tpu_torch.fields import tower
     from sipp_tpu_torch.curves import scalar_to_bits
-    from sipp_tpu_torch.ops import _build, exp, fexp, fq, miller
+    from sipp_tpu_torch.curves import G1, G2
+    from sipp_tpu_torch.ops import _build, exp, fexp, fq, miller, msm
     from sipp_tpu_torch.pairing import ate
     from sipp_tpu_torch.utils.testing import random_instance
 
@@ -234,6 +240,7 @@ def main():
     ks = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(K8_LANES)]
     bits8 = torch.as_tensor(np.stack([scalar_to_bits(k) for k in ks], 1).astype(np.int64),
                             device=dev)
+    x2 = dict(zip(("msm_sum_g1", "msm_sum_g2"), random_instance(4096, seed=SEED, device=dev)))
     k0 = {"fq_mul_n4096": fq.random_batch(4096, SEED, dev),
           "fq_mul_n1048576": fq.uniform_batch(1 << 20, SEED, dev)}
 
@@ -253,6 +260,10 @@ def main():
                            lambda: miller.miller_step_plain(1, b, qn0, a, f0, t0)),
         "fq12_exp_n14": (lambda: exp.fq12_exp(x8, off8, bits8),
                          lambda: exp.fq12_exp_plain(x8, off8, bits8)),
+        **{f"{name}_n{n}": (lambda fn=getattr(msm, name), x=x[:n]: fn(x),
+                            lambda curve=G2 if name.endswith("2") else G1, x=x[:n]:
+                            msm.msm_finish_plain(curve, x))
+           for name, x in x2.items() for n in (4096, N)},
     }
     want = {case: plain() for case, (_, plain) in cases.items()}
 
