@@ -66,7 +66,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      rows) with the same bits, and at 100 lanes with all-zero bits, offsets
      of one and x = 1; X1 on the instance's B at 128 lanes and at 100 lanes
      with raw map points (off the r-torsion), points of the cofactor's
-     order and infinity lanes (0 exactly on the forged lanes); X2 on K6's
+     order, one point of each prime order of the cofactor and infinity
+     lanes (0 exactly on the forged lanes), each case also equal to the
+     [r]Q ladder of the JAX package's form (plain PyTorch on the card,
+     ops/validate.py g2_torsion_r_ladder), with its latency floor; X2 on K6's
      output at the MSM finals' 128 lanes, G1 and G2, at 100 lanes with
      a repeated lane that the chain doubles, a lane that cancels the sum,
      infinity lanes and a cancelling pair (also against the sum of the
@@ -168,9 +171,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      block edges (chunks and blocks of the chunk launch that repeat,
      cancel or lie at infinity), over its halves cancelling (the sum at
      infinity: all-zero limbs) and over its first 3,971 lanes (a ragged
-     last block), and X1 on B, each against its plain version, tolerance
-     0, with ms, device_ms and the bound counted as the n = 128 rows count
-     it, X2's with its latency floor); sharded_4096
+     last block), and X1 on B (also equal to the [r]Q ladder), each
+     against its plain version, tolerance 0, with ms, device_ms and the
+     bound counted as the n = 128 rows count it, X1's and X2's with their
+     latency floors); sharded_4096
      (sipp_prove_sharded on four shards of one card: 10 sharded rounds and
      a tail of 2, its proof byte-equal to the on-chip one, the shard
      count's K1/K2/K3 launches);
@@ -200,13 +204,17 @@ and the word rows of the inverse's Montgomery division by 2^k, k counted
 on this run's challenge by the host's model of the kernel's binary
 extended Euclid, whose subtract-and-shift steps multiply nothing); the
 plain version works on 16-bit Goldilocks limbs in Montgomery form.  For X1
-they are the plain ladder's products; for X2 the least the sum needs, an
-incomplete mixed add for each live lane but the first and to_affine's
-products (the plain tree also doubles beside every addition).  X2's lines
+they are the products of the chain validate.cu runs on each lane that is
+not all-zero (x1_products: the doublings, complete mixed and Jacobian
+additions and psi maps of the endomorphism test, 3 Fq products an Fq2
+product); for X2 the least the sum
+needs, an incomplete mixed add for each live lane but the first and
+to_affine's products (the plain tree also doubles beside every addition).  X2's lines
 also carry its latency floor (x2_floor_ms: ceil(log2 n) dependent
 complete additions of 5 product levels each, then, unless the sum is at
 infinity, the Fermat inversion's chain and to_affine's products, at the
-Fq probe's cycles a product).  No
+Fq probe's cycles a product), and X1's lines its own (x1_floor_ms: the
+dependent product levels of its chain, at the same cycles).  No
 PyTorch call computes any of these functions, so library_ms is null.
 
 Usage, from the root of a checkout (the first run builds the kernels with
@@ -253,18 +261,23 @@ GOLDEN = pathlib.Path(__file__).resolve().parent / "tests" / "golden" / "torch_p
 HBM_BYTES_PER_S = 3.35e12
 FQ_PRODUCT_IMULS = 256                # an 8-word Montgomery product (Fq, Fr)
 ADD_MIXED_PRODUCTS = 11               # field products of one incomplete mixed add
+DBL_PRODUCTS = 7        # of a doubling (ladder.cuh dbl_staged; curves' dbl makes 8)
+ADD_JACOBIAN_PRODUCTS = 16   # of a complete Jacobian add, its doubling case aside
+PSI_PRODUCTS = 2        # of the twist's Frobenius on a Jacobian point (X and Y)
 GL_PRODUCT_IMULS = 8    # Goldilocks 64 x 64 -> 128 bits: 4 word products; the
 #                         reduction by 2^64 = 2^32 - 1 takes shifts and adds
 MDS_TERM_IMULS = 4      # an MDS entry (< 2^32) times a u64: 2 word products
 FR_DIV_ROW_IMULS = 17   # a word row of a Montgomery division: m, then m r
 X2_ADD_DEPTH = 5        # dependent product levels of a complete Jacobian add
 #                         (Z^2, U, H^2, H^3, R (V - X3): curves' add's formulas)
+DBL_DEPTH = 3           # of a doubling (X^2, B^2, M (S - X3): ladder.cuh's stages)
 FQ12_MUL_PRODUCTS = 54  # Fq products of one Fq12 multiply
 FQ12_SQR_PRODUCTS = 36  # of one complex squaring (K1's and K7's table);
 #                         the plain tower.fq12_sqr multiplies, 54
 # The redesigned kernels' times before their last redesign (K1, K2, K3, K6,
 # K7, K8: one thread per element or lane; K4, K5: shared-memory rounds and a
-# Fermat inverse; X2: one lane group's chain), quoted from the "before"
+# Fermat inverse; X2: one lane group's chain; X1: the [r]Q ladder), quoted
+# from the "before"
 # column of PERF.md's kernel tables (NVIDIA H100 80GB HBM3, 700.00 W), not
 # measured by this script: shown in the kernel phase lines only, under a
 # key that says so, never in the kernels summary line
@@ -278,7 +291,9 @@ QUOTED_EARLIER_MS = {"final_exp_b1": 14.14, "final_exp_b2": 14.15, "fold_g1": 3.
                      "fq_mul_n4096": 0.0461, "fq_mul_n1000": 0.0359,
                      "msm_sum_g1": 0.6719, "msm_sum_g2": 1.3156,
                      "msm_sum_g1_edge_n100": 0.5636, "msm_sum_g2_edge_n100": 1.0735,
-                     "msm_sum_g1_n4096": 16.268, "msm_sum_g2_n4096": 36.480}
+                     "msm_sum_g1_n4096": 16.268, "msm_sum_g2_n4096": 36.480,
+                     "g2_torsion": 2.2305, "g2_torsion_forged_n100": 2.2313,
+                     "g2_torsion_n4096": 2.457}
 PROBE_ITERS = 4096
 SLEEP_MS = 50           # device_ms's head start over the host's enqueue
 PROBE_PERMS = 64
@@ -664,6 +679,39 @@ def x2_floor_ms(curve, lanes, total, cycles_per_product, sm_mhz):
     return products * cycles_per_product / (sm_mhz * 1e3)
 
 
+def x1_products(pts):
+    """Fq products of X1's chain (validate.cu) on the lanes of pts that are
+    not all-zero (an all-zero lane's verdict needs none): [x0]Q from
+    infinity (a doubling a bit past the first, a complete mixed addition a
+    set bit), psi three times, the doubling of W, the complete mixed
+    addition of Q and three complete Jacobian additions, each Fq2 product 3
+    Fq products.  The doubling that a complete addition adds on a lane
+    where P == Q is left out: only points of small order meet it, a few
+    times a run, so the count stays at or below the work."""
+    from sipp_tpu_torch import params
+    from sipp_tpu_torch.curves import G2
+
+    x = params.X
+    fq2 = (DBL_PRODUCTS * x.bit_length() + ADD_MIXED_PRODUCTS * (bin(x).count("1") + 1)
+           + 3 * PSI_PRODUCTS + 3 * ADD_JACOBIAN_PRODUCTS)
+    return 3 * fq2 * int((~G2.is_affine_infinity(pts)).sum())
+
+
+def x1_floor_ms(cycles_per_product, sm_mhz):
+    """X1's latency floor a lane: the dependent product levels of
+    validate.cu's chain, [x0]Q (a doubling a bit past the first, a complete
+    mixed addition a set bit), then psi three times (one level each), a
+    doubling and four additions, an Fq2 product counted as one Fq product
+    (its parts on separate threads), at the probe's cycles a dependent Fq
+    product and the maximum SM clock, with no launch, load or store."""
+    from sipp_tpu_torch import params
+
+    x = params.X
+    levels = (DBL_DEPTH * (x.bit_length() - 1) + X2_ADD_DEPTH * bin(x).count("1")
+              + 3 + DBL_DEPTH + 4 * X2_ADD_DEPTH)
+    return levels * cycles_per_product / (sm_mhz * 1e3)
+
+
 def x2_edge(curve, pts):
     """100 lanes for X2 from K6-like lanes: a repeated lane that the chain
     doubles (P, P), then -[2]P (the sum back at infinity), infinity lanes,
@@ -926,7 +974,8 @@ def run_large(dev, smi, imul_per_s, sleep_cycles, cycles, sm_mhz, a128, b128):
     products_needed = {"exp_g1_n4096": lambda p: p.get(16, 0) - k6_skipped(a, msm_a),
                        "exp_g2_n4096": lambda p: p.get(16, 0) - 3 * k6_skipped(b, msm_b),
                        **{name: (lambda p, lanes=lanes, curve=G2 if "_g2" in name else G1:
-                                 x2_products(curve, lanes)) for name, lanes in x2_large.items()}}
+                                 x2_products(curve, lanes)) for name, lanes in x2_large.items()},
+                       "g2_torsion_n4096": lambda p: x1_products(b)}
     table = {}
     for name, counter, kern, plain, inputs in cases:
         t_case = time.time()
@@ -935,7 +984,7 @@ def run_large(dev, smi, imul_per_s, sleep_cycles, cycles, sm_mhz, a128, b128):
         err, ok = compare(got_k, want_k)
         k_ms, d_ms = kernel_ms(kern), device_ms(kern, sleep_cycles)
         # as the n = 128 rows: an Fq12 squaring at the complex squaring's
-        # products; K6 less what its bits skip; X2 its least work
+        # products; K6 less what its bits skip; X1 its chain; X2 its least work
         needed = products_needed.get(name, lambda p: p.get(16, 0) - (
             FQ12_MUL_PRODUCTS - FQ12_SQR_PRODUCTS) * p.get("fq12_sqr", 0))(products)
         bound_ms, bound_by = bound(FQ_PRODUCT_IMULS * needed, 8 * sum(
@@ -950,6 +999,11 @@ def run_large(dev, smi, imul_per_s, sleep_cycles, cycles, sm_mhz, a128, b128):
         if name in x2_large:
             table[name]["latency_floor_ms"] = extra["latency_floor_ms"] = x2_floor_ms(
                 G2 if "_g2" in name else G1, x2_large[name], want_k, cycles, sm_mhz)
+        elif counter == "g2_torsion":
+            table[name]["latency_floor_ms"] = extra["latency_floor_ms"] = x1_floor_ms(
+                cycles, sm_mhz)
+            extra["equals_r_ladder"] = torch.equal(got_k, x1.g2_torsion_r_ladder(b))
+            ok = ok and extra["equals_r_ladder"]
         emit({"phase": "kernels_4096", "n": n, "name": name,
               "shape": [list(t.shape) for t in tensors(got_k)], "bit_equal": ok,
               "max_abs_err": err, "tolerance": 0, "ms": k_ms, "device_ms": d_ms, **extra,
@@ -1236,14 +1290,19 @@ def main():
     k3_g1, k3_g2 = KERNEL_SOURCES["fold_g1"], KERNEL_SOURCES["fold_g2"]
 
     # X1 inputs: the instance's B at 128 lanes; and 100 lanes with raw map
-    # points (on the twist, off the r-torsion), points of the cofactor's
-    # order ([r] of a raw point) and infinity lanes
+    # points (on the twist, of order r h2, off the r-torsion), points of the
+    # cofactor's order ([r] of a raw point), a point of each prime order l
+    # of the cofactor ([r h2 / l] of a raw point) and infinity lanes
     raw = [map_to_g2_without_cofactor_mul((1234 + i, 5678)) for i in range(3)]
     forged_b = b[:E].clone()
     raw_lanes, cofactor_lanes, inf_lanes = [8, 60, 99], [9, 61], [10, 62]
+    prime_lanes = [20, 40, 70, 90]
     forged_b[raw_lanes] = curves.g2_encode(raw, dev)
     forged_b[cofactor_lanes] = curves.g2_encode(
         [hostref.g2_mul_raw(pt, params.R) for pt in raw[:2]], dev)
+    forged_b[prime_lanes] = curves.g2_encode(
+        [hostref.g2_mul_raw(raw[0], params.R * params.G2_COFACTOR // q)
+         for q in params.G2_COFACTOR_PRIMES], dev)
     forged_b[inf_lanes] = 0
     x1_src = KERNEL_SOURCES["g2_torsion"]
 
@@ -1328,7 +1387,8 @@ def main():
     chain = {"fq12_exp_n14": k8_products(k8_bits), "fq12_exp_forged_n14": k8_products(k8_bits),
              "fq12_exp_edge_n100": k8_products(e8_bits),
              **{name: x2_products(G2 if "g2" in name else G1, lanes)
-                for name, lanes in x2_lanes.items()}}
+                for name, lanes in x2_lanes.items()},
+             "g2_torsion": x1_products(b), "g2_torsion_forged_n100": x1_products(forged_b)}
     table = {}
     for name, counter, src, replaces, kern, plain, inputs in cases:
         got = kern()
@@ -1360,13 +1420,18 @@ def main():
             # an Fq12 squaring needs the complex squaring's products
             sqr_saved = (FQ12_MUL_PRODUCTS - FQ12_SQR_PRODUCTS) * products.get("fq12_sqr", 0)
             imuls = FQ_PRODUCT_IMULS * (products.get(16, 0) - sqr_saved - skipped.get(name, 0))
+        if counter == "g2_torsion":
+            # X1's verdicts also against the [r]Q ladder, the JAX package's form
+            extra["latency_floor_ms"] = x1_floor_ms(cycles, sm_mhz)
+            extra["equals_r_ladder"] = torch.equal(got, x1.g2_torsion_r_ladder(inputs[0]))
+            ok = ok and extra["equals_r_ladder"]
         bound_ms, bound_by = bound(imuls, 8 * sum(t.numel() for t in tensors(inputs)
                                                   + tensors(got)), imul_per_s)
         table[name] = {"name": name, "route": "cuda", "source": f"sipp_tpu_torch/csrc/{src}",
                        "replaces": replaces, "counter": counter, "max_abs_err": err,
                        "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-        if counter.startswith("msm_sum"):
+        if counter.startswith(("msm_sum", "g2_torsion")):
             table[name]["latency_floor_ms"] = extra["latency_floor_ms"]
         emit({"phase": "kernel", "name": name, "shape": [list(t.shape) for t in tensors(got)],
               "bit_equal": ok, "max_abs_err": err, "tolerance": 0, "ms": k_ms,
@@ -1414,7 +1479,8 @@ def main():
         raise SystemExit("the per-step Miller loop with infinity lanes differs from K1")
     # X1's forged lanes: 0 exactly on the lanes off the r-torsion
     bad_lanes = torch.nonzero(x1.g2_torsion(forged_b) == 0).flatten().tolist()
-    if bad_lanes != sorted(raw_lanes + cofactor_lanes) or not bool(x1.g2_torsion(b).all()):
+    if bad_lanes != sorted(raw_lanes + cofactor_lanes + prime_lanes) or \
+            not bool(x1.g2_torsion(b).all()):
         raise SystemExit(f"X1 flagged lanes {bad_lanes}, not exactly the forged ones")
     # X2's edge lanes against hostref: the sum of the lanes on the host
     for name, add, dec in (("msm_sum_g1_edge_n100", hostref.g1_add, curves.g1_decode),

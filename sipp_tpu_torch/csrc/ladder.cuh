@@ -1,9 +1,10 @@
 // The staged Jacobian doubling, mixed addition, complete mixed addition
 // and complete Jacobian addition of the curve ladders K3 (fold.cu: lo + [x]
 // hi, one shared scalar), K6 (exp.cu: off_i + [k_i] x_i, a scalar per
-// lane), X1 (validate.cu: [r]Q per lane) and of X2's chunks and tree
-// (msm.cu: the sum of the lanes), over G1 (Fq) and G2 (Fq2), one
-// definition for every kernel.
+// lane), X1 (validate.cu: [x0]Q per lane and the endomorphism test after
+// it, with the twist's Frobenius psi and the negation below) and of X2's
+// chunks and tree (msm.cu: the sum of the lanes), over G1 (Fq) and G2
+// (Fq2), one definition for every kernel.
 //
 // What bounds a ladder on the H100: latency.  A fold round has 64 to 1 live
 // lanes and the MSM finals 128, so the grid fills a few SMs at most, and
@@ -310,6 +311,40 @@ static __device__ __noinline__ void add_jacobian_staged(FoldLane<F>& L, const ty
     }
     __syncwarp();
     if (__any_sync(0xffffffffu, same)) dbl_staged<F>(L, sub, same);
+}
+
+// The twist's Frobenius endomorphism psi on Jacobian coordinates (G2):
+// (X : Y : Z) -> (conj(X) gx, conj(Y) gy, conj(Z)), gx and gy hostref's
+// TWIST_FROB_X and TWIST_FROB_Y (BN_TWF), so that x = X / Z^2 maps to
+// conj(x) gx as on affine points; Z = 0 (infinity) stays 0.  One stage:
+// the two Fq2 products split as mul_pair splits them (parts 0 and 2 on
+// threads 0 and 2, part 1 on threads 1 and 3), Z's conjugate on thread 0.
+// The output may be the input: every thread reads its operands before the
+// barrier, and threads 0 and 2 write after it.
+static __device__ __noinline__ void psi_staged(FoldLane<G2Field>& L, Fq2& oX, Fq2& oY, Fq2& oZ,
+                                               const Fq2& X, const Fq2& Y, const Fq2& Z,
+                                               int sub) {
+    const int k = sub >> 1, h = sub & 1;
+    Fq2 a, g, z;
+    fq2_conj(a, k ? Y : X);
+    fq2_conj(z, Z);
+    for (int w = 0; w < 8; w++) {
+        g.c0.v[w] = BN_TWF[k][0][w];
+        g.c1.v[w] = BN_TWF[k][1][w];
+    }
+    G2Field::mul_part(L.part[k], a, g, h);
+    if (h == 0) G2Field::mul_part(L.part[k], a, g, 2);
+    __syncwarp();
+    if (h == 0) G2Field::combine(k ? oY : oX, L.part[k]);
+    if (sub == 0) oZ = z;
+    __syncwarp();
+}
+
+// acc = -acc: Y negated on thread 0, Z untouched (infinity stays there)
+template <class F>
+static __device__ void neg_staged(FoldLane<F>& L, int sub) {
+    if (sub == 0) F::sub(L.Y, L.zero, L.Y);
+    __syncwarp();
 }
 
 // Jacobian -> affine (x, y) of the accumulator, infinity -> (0, 0), stored

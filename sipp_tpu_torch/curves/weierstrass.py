@@ -147,14 +147,18 @@ class CurveOps:
                 acc = self.add_mixed(acc, hi_aff)
         return self.add_mixed(acc, lo_aff)
 
-    def mul_check_ladder(self, q_aff, bits):
+    def mul_check_ladder(self, q_aff, bits, dbl_q=None):
         """[k]Q per lane with the complete mixed add (doubling case
-        handled), for adversarial points (the r-torsion check); zero bits
-        skip the add, since the bits are shared.  Returns jacobian."""
+        handled; dbl_q = dbl(Q) when the caller has it), for adversarial
+        points (the r-torsion check); zero bits skip the add, since the bits
+        are shared, and the first doubling, of infinity, is skipped.
+        Returns jacobian."""
         acc = torch.zeros_like(self.jac_from_affine(q_aff))
-        dbl_q = self.dbl(self.jac_from_affine(q_aff))
-        for bit in bits:
-            acc = self.dbl(acc)
+        if dbl_q is None:
+            dbl_q = self.dbl(self.jac_from_affine(q_aff))
+        for i, bit in enumerate(bits):
+            if i:
+                acc = self.dbl(acc)
             if bit:
                 acc = self.add_mixed(acc, q_aff, dbl_q)
         return acc

@@ -115,8 +115,6 @@ def params_header() -> str:
     lines.append(f"#define MILLER_PARTIAL_LIMBS {PARTIAL_LIMBS}")
     text = "\n".join(lines) + "\n"
     text += _arr("BN_PM2", "uint32_t", "[8]", _words(P - 2))
-    text += f"#define BN_R_NBITS {params.R.bit_length()}\n"
-    text += _arr("BN_R", "uint32_t", "[8]", _words(params.R))
     text += _arr("BN_NAF", "signed char", f"[{len(naf)}]", naf)
     text += _arr("BN_TWF", "uint32_t", "[2][2][8]",
                  [w for c in (hostref.TWIST_FROB_X, hostref.TWIST_FROB_Y)

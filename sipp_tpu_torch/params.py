@@ -40,6 +40,11 @@ G2_GEN = (
 # G2 cofactor: h2 = 2p - r for BN curves (#E'(Fq2) = h2 * r).
 G2_COFACTOR = 2 * P - R
 assert G2_COFACTOR == 21888242871839275222246405745257275088844257914179612981679871602714643921549
+# h2's prime factors, each once (tests/test_torch_torsion.py checks that
+# they are prime): E'(Fq2) is cyclic of squarefree order r h2.
+G2_COFACTOR_PRIMES = (10069, 5864401, 1875725156269,
+                      G2_COFACTOR // (10069 * 5864401 * 1875725156269))
+assert G2_COFACTOR_PRIMES[-1] * 10069 * 5864401 * 1875725156269 == G2_COFACTOR
 
 # Optimal ate pairing loop count: 6x + 2.
 ATE_LOOP_COUNT = 6 * X + 2

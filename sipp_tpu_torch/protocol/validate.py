@@ -5,9 +5,15 @@ kernel):
   * limbs canonical: every limb < 2^16 and every Fq value < p;
   * A on the curve y^2 = x^3 + 3 (G1 has cofactor 1, so this is also
     subgroup membership);
-  * B on the twist y^2 = x^3 + 3/(9+u) AND in the r-torsion: [r]Q == O via
-    the complete-add ladder (the incomplete fold ladder must not be trusted
-    with adversarial points), kernel X1 on a card (ops/validate.py).
+  * B on the twist y^2 = x^3 + 3/(9+u) AND in the r-torsion, kernel X1 on
+    a card (ops/validate.py): not [r]Q == O over r's 254 bits, as the JAX
+    package checks it, but the endomorphism test of eprint 2022/348
+    (sections 3 and 5.1) over x0's 63 bits with the complete additions (the
+    incomplete fold ladder must not be trusted with adversarial points),
+    which gives the same verdict on every point of the twist
+    (tests/test_torch_torsion.py proves it).  Off the twist the torsion
+    verdict means nothing: finish() reports an off-twist B before it reads
+    any torsion verdict, so the words are the JAX package's on every input.
 
 (0, 0) encodes the point at infinity and is accepted.  Each check raises
 VerificationError.  check_instance_async runs the limb checks at once and

@@ -551,9 +551,11 @@ def test_add_jacobian_kernel_emulated_matches_plain(sim, group):
 
 
 def test_torsion_kernel_emulated_matches_plain(sim):
-    """X1's device code (validate.cu) at 8 lanes (one block): honest points,
-    three off the r-torsion (the raw map), one of the cofactor's order
-    ([r] of a raw point) and an infinity lane, against g2_torsion_plain."""
+    """X1's device code (validate.cu) at 16 lanes (two blocks): honest
+    points, three off the r-torsion (the raw map, of order r h2), one of the
+    cofactor's order ([r] of a raw point), an infinity lane, and from the
+    raw point T = [r h2 / m]T for m = r and each prime l of h2 (order m)
+    and for m = r l (order r l), against g2_torsion_plain."""
     from sipp_tpu_torch import curves
     from sipp_tpu_torch.ops import validate as x1
 
@@ -562,10 +564,14 @@ def test_torsion_kernel_emulated_matches_plain(sim):
     b[[1, 4, 6]] = curves.g2_encode(raw)
     b[5] = curves.g2_encode([hostref.g2_mul_raw(raw[0], params.R)])[0]
     b[3] = 0
-    got = run_sim(sim, "torsion", 8, [b])
+    order = params.R * params.G2_COFACTOR
+    ms = [params.R, *params.G2_COFACTOR_PRIMES, *(params.R * l for l in params.G2_COFACTOR_PRIMES)]
+    pts = curves.g2_encode([hostref.g2_mul_raw(raw[0], order // m) for m in ms])
+    b = torch.cat([b[:2], pts[:1], b[3:], pts[1:]])
+    got = run_sim(sim, "torsion", 16, [b])
     want = x1.g2_torsion_plain(b)
     assert torch.equal(got, want)
-    assert want.tolist() == [1, 0, 1, 1, 0, 0, 0, 1]
+    assert want.tolist() == [1, 0, 1, 1, 0, 0, 0, 1] + [0] * 8
 
 
 MSM_SRC = (_build.CUDA_SRC / "msm.cu").read_text()

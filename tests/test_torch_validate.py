@@ -46,6 +46,18 @@ def test_plain_torsion_verdicts_match_jax(golden):
     assert got[0].tolist() == golden["torsion_ok"].astype(np.int64).tolist()
 
 
+def test_plain_torsion_prime_orders_match_jax(golden):
+    """g2_torsion_plain (the endomorphism test) and the [r]Q ladder against
+    the XLA _g2_in_subgroup on the points where the two tests could part:
+    one of each prime order of r h2 (r first) and one of order r l for
+    each prime l of h2."""
+    b = convert.from_reference(golden["torsion_prime_b"], device="cpu")
+    want = golden["torsion_prime_ok"].astype(np.int64).tolist()
+    assert want == [1] + [0] * 8
+    assert x1.g2_torsion_plain(b).tolist() == want
+    assert x1.g2_torsion_r_ladder(b).tolist() == want
+
+
 @pytest.mark.parametrize("case", range(6))
 def test_check_instance_async_matches_jax(golden, case):
     """Limb faults raise at once; curve and subgroup faults only from

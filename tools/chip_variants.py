@@ -18,7 +18,11 @@ through the port's own wrappers (ops/miller.py, fexp.py, exp.py):
   32 (a warp), the larger tile that a large B might have wanted;
 * ``chunk2``, ``chunk8``, ``chunk16``: X2 (msm.cu) with MSM_CHUNK 2, 8 or
   16 lanes a group in its chunk launch instead of 4 (the wrapper reads the
-  partials' count from the variant's own library).
+  partials' count from the variant's own library);
+* ``x1_r254``: X1 (validate.cu) as [r]Q == O, the complete-add ladder over
+  r's 254 bits and no endomorphism test after it, instead of the test over
+  x0's 63 bits: the "before" of X1's redesign (its first doubling, of
+  infinity, skipped as the new chain skips it).
 
 The chosen variants (all by default) run in turns, in order and then in
 reverse (words, bytes, ..., chunk16, chunk16, ..., bytes, words), on the
@@ -26,8 +30,9 @@ same inputs: K0 at B = 4096 (random_batch, seed 1177) and B = 2^20
 (uniform_batch), K1 at the aggregation's 128 lanes (seed 1177), K2 at B = 1,
 K7 on the loop's first carry for digits 0 and 1, K8 on 14 lanes of
 seeded Fq12 values off the cyclotomic subgroup with seeded 254-bit
-exponents, and X2 over the seed-1177 instance's A and B at n = 4096 and
-their first 128 lanes.  Every output is compared with the plain version (tolerance 0).
+exponents, X2 over the seed-1177 instance's A and B at n = 4096 and
+their first 128 lanes, and X1 over that B and its first 128 lanes.
+Every output is compared with the plain version (tolerance 0).
 A time is read as chip_smoke.py reads it: ``ms`` by CUDA events around one
 wrapper call, ``device_ms`` over launches queued behind a sleep.  With
 ``words`` and ``fq_pr7`` both chosen, K0's wrapper split follows: the
@@ -53,6 +58,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (the timing helpers and the ptxas parser)
+from sipp_tpu_torch import params  # noqa: E402  (r for x1_r254)
 
 SEED = 1177
 N = 128
@@ -74,6 +80,13 @@ fq_mul_pr7_kernel(const long long* __restrict__ a, const long long* __restrict__
 }
 
 """
+# r's bits for x1_r254, MSB first, in place of x0's
+X1_R_BIT = f"""static __constant__ uint32_t R_WORDS[8] = {{{", ".join(
+    f"0x{(params.R >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(8))}}};
+static __device__ __forceinline__ bool x_bit(int i) {{
+    const int k = {params.R.bit_length() - 1} - i;
+    return (R_WORDS[k / 32] >> (k % 32)) & 1;
+}}"""
 PATCHES = {
     "words": [],
     "bytes": [("bn254.cuh", "if (sizeof(T) % 4 == 0 && ", "if (false && ")],
@@ -87,9 +100,16 @@ PATCHES = {
     "tile256": [("fq.cu", "#define FQ_MUL_TILE 32 ", "#define FQ_MUL_TILE 256 ")],
     **{f"chunk{c}": [("msm.cu", "#define MSM_CHUNK 4 ", f"#define MSM_CHUNK {c} ")]
        for c in (2, 8, 16)},
+    "x1_r254": [("validate.cu", "static __device__ __forceinline__ bool x_bit(int i) {      "
+                 "// MSB first\n    return (BN_X >> (BN_X_NBITS - 1 - i)) & 1;\n}", X1_R_BIT),
+                ("validate.cu", "i < BN_X_NBITS;", f"i < {params.R.bit_length()};"),
+                ("validate.cu", "    if (sub == 0) {\n        S[0][0] = L.X;",
+                 "    if (sub == 0 && live)\n        out[lane] = fq2_is_zero(L.Z) || "
+                 "(fq2_is_zero(L.hx) && fq2_is_zero(L.hy));\n    return;\n"
+                 "    if (sub == 0) {\n        S[0][0] = L.X;")],
 }
 KERNELS = ("miller_product_kernel", "final_exp_kernel", "miller_step_kernel",
-           "fq12_exp_kernel", "fq_mul", "msm_sum_kernel")
+           "fq12_exp_kernel", "fq_mul", "msm_sum_kernel", "g2_torsion_kernel")
 
 
 def fq_mul_pr7(a, b):
@@ -198,11 +218,11 @@ def main():
     turns = args.variants + args.variants[::-1]
     if not torch.cuda.is_available():
         raise SystemExit("chip_variants: torch.cuda.is_available() is False; this needs a GPU")
-    from sipp_tpu_torch import params
     from sipp_tpu_torch.fields import tower
     from sipp_tpu_torch.curves import scalar_to_bits
     from sipp_tpu_torch.curves import G1, G2
     from sipp_tpu_torch.ops import _build, exp, fexp, fq, miller, msm
+    from sipp_tpu_torch.ops import validate as x1
     from sipp_tpu_torch.pairing import ate
     from sipp_tpu_torch.utils.testing import random_instance
 
@@ -264,6 +284,9 @@ def main():
                             lambda curve=G2 if name.endswith("2") else G1, x=x[:n]:
                             msm.msm_finish_plain(curve, x))
            for name, x in x2.items() for n in (4096, N)},
+        **{f"g2_torsion_n{n}": (lambda x=x2["msm_sum_g2"][:n]: x1.g2_torsion(x),
+                                lambda x=x2["msm_sum_g2"][:n]: x1.g2_torsion_plain(x))
+           for n in (4096, N)},
     }
     want = {case: plain() for case, (_, plain) in cases.items()}
 

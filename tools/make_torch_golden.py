@@ -75,6 +75,12 @@ device format (16 x 16-bit Montgomery limbs):
                    off the r-torsion), B_5 = [r] B_1 (of the cofactor's
                    order) and B_3 = O; torsion_ok: validate._g2_in_subgroup
                    of torsion_b (the XLA program that X1 replaces)
+  torsion_prime_b, torsion_prime_ok
+                   [r h2 / q] T for T = map_to_g2_without_cofactor_mul((1234,
+                   5678)), of order r h2, and each prime q of r h2 (r first,
+                   then h2's four primes: points of prime order q), then
+                   [h2 / l] T for each prime l of h2 (order r l), and
+                   _g2_in_subgroup's verdicts on them
   torsion_cases, torsion_case_a, torsion_case_b, torsion_when, torsion_msgs
                    instances from torsion_a and an honest B (lane 3 at
                    infinity), one per case (fine; A off the curve; B off
@@ -422,6 +428,8 @@ def stage_torsion(g):
     from sipp_tpu.protocol import validate
     from sipp_tpu.protocol.verifier import VerificationError
 
+    from sipp_tpu_torch.params import G2_COFACTOR, G2_COFACTOR_PRIMES
+
     a, b_honest = (u32(x).copy() for x in random_instance(8, seed=23))
     raw = [map_to_g2_without_cofactor_mul((1234 + i, 5678)) for i in range(3)]
     b = b_honest.copy()
@@ -431,6 +439,13 @@ def stage_torsion(g):
     b_honest[3] = 0
     g.update(torsion_a=a, torsion_b=b,
              torsion_ok=np.asarray(jax.device_get(validate._g2_in_subgroup(b)), bool))
+    order = params.R * G2_COFACTOR
+    scalars = [order // q for q in (params.R, *G2_COFACTOR_PRIMES)] + [
+        G2_COFACTOR // q for q in G2_COFACTOR_PRIMES]
+    prime_b = u32(g2_encode([hostref.g2_mul_raw(raw[0], k) for k in scalars]))
+    g.update(torsion_prime_b=prime_b, torsion_prime_ok=np.asarray(
+        jax.device_get(validate._g2_in_subgroup(prime_b)), bool))
+    log(f"torsion_prime_ok {g['torsion_prime_ok'].tolist()}")
     off_a, off_b, limb_b, outside = a.copy(), b_honest.copy(), b_honest.copy(), b_honest.copy()
     off_a[2, 1] = _plus_one(off_a[2, 1])
     off_b[6, 1, 0] = _plus_one(off_b[6, 1, 0])
