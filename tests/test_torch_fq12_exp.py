@@ -1,9 +1,10 @@
 """K8, the per-lane Fq12 exp, and the verifier without the C++ library
 (SIPP_TPU_NO_NATIVE=1): the plain version (ops/exp.py fq12_exp_plain =
 tower.fq12_exp_with_offset, which the wrapper runs for CPU tensors) against
-the JAX package's tower.fq12_exp_with_offset, live on four lanes, which the
-JAX package holds bit-identical to its Pallas kernel pallas_exp.
-fq12_exp_fused; edge lanes with all-zero bits, an offset of one and x = 1;
+the JAX package's tower.fq12_exp_with_offset on four lanes, frozen as golden
+stage fq12_exp (the JAX package holds it bit-identical to its Pallas kernel
+pallas_exp.fq12_exp_fused); edge lanes with all-zero bits, an offset of one
+and x = 1;
 the no-native verifier against the n = 4 golden statement, its device Z'
 chain against the C++ chain, and the pure-Python transcript against the
 native one.  Exact equality (tolerance 0, canonical values).  The CUDA
@@ -15,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from sipp_tpu.fields import tower as jtower
 from sipp_tpu_torch import convert, curves, hostref, native, params
 from sipp_tpu_torch.curves import scalar_to_bits
 from sipp_tpu_torch.fields import tower
@@ -55,12 +55,16 @@ def test_plain_matches_jax_with_edge_lanes():
     ks = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(4)]
     ks[1] = 0
     bits = np.stack([scalar_to_bits(k) for k in ks], axis=1)
-    want = jtower.fq12_exp_with_offset(jtower.fq12_encode(xs), jtower.fq12_encode(offs), bits)
     x, off = tower.fq12_encode(xs), tower.fq12_encode(offs)
+    with np.load(GOLDEN) as g:
+        want = {k: g[f"fq12_exp_{k}"] for k in ("x", "off", "bits", "out")}
+    assert np.array_equal(convert.to_reference(x), want["x"])
+    assert np.array_equal(convert.to_reference(off), want["off"])
+    assert np.array_equal(bits, want["bits"])
     before = exp.fq12_exp.launches
     got = exp.fq12_exp(x, off, torch.as_tensor(bits.astype(np.int64)))
     assert exp.fq12_exp.launches == before          # the plain version on a CPU tensor
-    assert np.array_equal(convert.to_reference(got), np.asarray(want))
+    assert np.array_equal(convert.to_reference(got), want["out"])
     host = tower.fq12_decode(got)
     assert host[1] == offs[1] and host[3] == offs[3]
 

@@ -341,7 +341,7 @@ def compile_sim(d, transcript_header):
     exe = d / "sim"
     proc = subprocess.run([gxx, "-O1", "-std=c++20", "-pthread", f"-I{HOST}", f"-I{d}",
                            f"-I{_build.CUDA_SRC}", str(HOST / "sim_main.cpp"), "-o", str(exe)],
-                          capture_output=True, text=True)
+                          capture_output=True, text=True, timeout=300)  # 4-20 s measured
     if proc.returncode != 0 and "barrier" in proc.stderr:
         pytest.skip("g++ without C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr
@@ -374,7 +374,9 @@ def sim_rc_file(tmp_path_factory):
 def run_sim(sim, mode, n, arrays):
     d, exe = sim
     np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in arrays]).tofile(d / "in.bin")
-    subprocess.run([str(exe), mode, str(n), str(d / "in.bin"), str(d / "out.bin")], check=True)
+    # 1 s alone, over 10 s for the longest modes under a loaded tier-1 run
+    subprocess.run([str(exe), mode, str(n), str(d / "in.bin"), str(d / "out.bin")], check=True,
+                   timeout=300)
     return torch.from_numpy(np.fromfile(d / "out.bin", dtype=np.int64))
 
 

@@ -100,6 +100,11 @@ device format (16 x 16-bit Montgomery limbs):
                    layout) of random_points(4096, seed=1177), the JAX
                    package's host draw (~3 min of pure-Python multiplies);
                    chip_smoke.py holds the port's draw on the card to it
+  fq12_exp_x, fq12_exp_off, fq12_exp_bits, fq12_exp_out
+                   tower.fq12_exp_with_offset on four lanes from
+                   default_rng(1177) (the inputs of
+                   tests/test_torch_fq12_exp.py): lane 0 generic, lane 1
+                   all-zero bits, lane 2 an offset of one, lane 3 x = 1
 
 Each stage runs in its own process, two at a time.  Usage (about half an
 hour on the CPU, most of it the XLA compiles of the on-chip stage and of
@@ -490,6 +495,28 @@ def stage_instance4096(g):
     log(f"instance4096_digest {g['instance4096_digest']}")
 
 
+def stage_fq12_exp(g):
+    from sipp_tpu import hostref
+    from sipp_tpu.fields import tower
+
+    rng = np.random.default_rng(1177)
+
+    def fq12():
+        v = [int.from_bytes(rng.bytes(40), "little") % params.P for _ in range(12)]
+        return tuple(tuple((v[6 * i + 2 * j], v[6 * i + 2 * j + 1]) for j in range(3))
+                     for i in range(2))
+
+    xs = [fq12() for _ in range(4)]
+    offs = [fq12() for _ in range(4)]
+    xs[3], offs[2] = hostref.FQ12_ONE, hostref.FQ12_ONE
+    ks = [int.from_bytes(rng.bytes(40), "little") % params.R for _ in range(4)]
+    ks[1] = 0
+    bits = np.stack([scalar_to_bits(k) for k in ks], axis=1)
+    x, off = tower.fq12_encode(xs), tower.fq12_encode(offs)
+    g.update(fq12_exp_x=u32(x), fq12_exp_off=u32(off), fq12_exp_bits=bits,
+             fq12_exp_out=u32(tower.fq12_exp_with_offset(x, off, bits)))
+
+
 def stage_sharded8_mesh(d, deps):
     """Checks, writes nothing: the JAX sharded prover on d forced host
     devices gives stage sharded8's proof."""
@@ -505,7 +532,7 @@ STAGES = [("onchip", ()), ("miller", ()), ("pair", ()), ("fold", ()), ("prove", 
           ("fexp", ("pair", "miller")), ("verify", ("prove",)), ("transcript", ()),
           ("exp", ()), ("msm_inf", ()), ("miller_step", ()), ("bls", ()), ("bls128", ()),
           ("sharded8", ()), ("sharded8_d2", ("sharded8",)), ("sharded8_d4", ("sharded8",)),
-          ("torsion", ()), ("instance4096", ())]
+          ("torsion", ()), ("instance4096", ()), ("fq12_exp", ())]
 
 
 def run_stage(name, tmp):
